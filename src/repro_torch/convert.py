@@ -1,0 +1,29 @@
+"""Carry the JAX package's parameters into the port.
+
+``params_from_numpy(tree, device)`` turns ``repro``'s parameter tree, given
+as numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), into
+the port's tree with the same keys: dicts, lists, dense ``w`` as
+``[d_in, d_out]`` and ``embedding.memory`` as a 1-D array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def params_from_numpy(tree, device=None):
+    """Map every array leaf of ``tree`` (nested dicts, lists, tuples) to a
+    tensor on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        return torch.from_numpy(np.array(t)).to(dev)
+
+    return walk(tree)

@@ -1,0 +1,8 @@
+"""ROBE hash and array (PyTorch port of ``repro.core``)."""
+
+from repro_torch.core.hashing import M31, UHash, sign_hash
+from repro_torch.core.robe import (RobeSpec, init_memory, robe_lookup,
+                                   robe_lookup_bag, robe_signs, robe_slots)
+
+__all__ = ["M31", "UHash", "sign_hash", "RobeSpec", "init_memory",
+           "robe_slots", "robe_signs", "robe_lookup", "robe_lookup_bag"]

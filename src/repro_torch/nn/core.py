@@ -1,0 +1,57 @@
+"""Minimal functional NN substrate (PyTorch port of ``repro.nn.core``).
+
+Every layer is a pair of plain functions
+    <layer>_init(generator, ..., device) -> params (dict of f32 tensors)
+    <layer>_apply(params, x) -> y
+Dense weights are stored ``[d_in, d_out]`` and applied as ``x @ w``, the
+JAX package's layout, so its parameters load leaf by leaf.  Compute casts
+to the input's dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def he_uniform(generator: torch.Generator, shape, device,
+               fan_in=None) -> torch.Tensor:
+    fan_in = fan_in or shape[0]
+    lim = float(np.sqrt(6.0 / fan_in))
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return w.uniform_(-lim, lim, generator=generator).to(device)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, device,
+               bias: bool = True) -> dict:
+    p = {"w": he_uniform(generator, (d_in, d_out), device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
+    return p
+
+
+def dense_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def mlp_init(generator: torch.Generator, dims: Sequence[int], device,
+             bias: bool = True) -> list:
+    return [dense_init(generator, dims[i], dims[i + 1], device, bias=bias)
+            for i in range(len(dims) - 1)]
+
+
+def mlp_apply(layers: list, x: torch.Tensor,
+              act: Callable = torch.relu,
+              final_act: Optional[Callable] = None) -> torch.Tensor:
+    for i, p in enumerate(layers):
+        x = dense_apply(p, x)
+        if i < len(layers) - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x

@@ -1,0 +1,238 @@
+"""Parity of the port's serve-path kernel functions with the JAX package's.
+
+On the CPU the port's ops run the plain versions (``kernels/ref.py``); the
+Hopper kernels themselves run only on a CUDA card (``chip_smoke.py`` holds
+them against these plain versions there).  Here each plain version is
+held against ``repro.kernels.ops.*(..., use_kernel=True)`` -- the Pallas
+kernel in interpret mode, as ``tests/test_kernel_conformance.py`` runs it
+-- and against ``repro.kernels.ref``, on the same numpy inputs.
+
+Tolerances: gathers match exactly; f32 within rtol = atol = 1e-5; bf16
+within 1e-2 (the two sides round bf16 at other places).  A CPU call must
+launch no kernel: every ``launches`` count stays 0.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.robe import RobeSpec as JRobeSpec
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import kernels as tk
+from repro_torch.core.robe import RobeSpec as TRobeSpec
+from repro_torch.kernels import ops as tops
+
+TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    """Every test here runs on the CPU: no kernel may be launched."""
+    tk.reset_launches()
+    yield
+    assert tk.launch_counts() == {"robe_lookup": 0, "dot_interaction": 0,
+                                  "serve_fused": 0}
+
+
+def _specs(z: int, use_sign: bool, size: int = 4096):
+    kw = dict(size=size, block_size=z, seed=7, use_sign=use_sign)
+    return JRobeSpec(**kw), TRobeSpec(**kw)
+
+
+def _t(a: np.ndarray, dt: str = "f32") -> torch.Tensor:
+    """numpy (f32 or int) -> torch, rounding to bf16 the way jnp does."""
+    if a.dtype.kind == "f":
+        return torch.from_numpy(np.ascontiguousarray(a)).to(TDT[dt])
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy() if x.is_floating_point() \
+            else x.numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, dt: str) -> None:
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dt])
+
+
+# ---------------------------------------------------------------------------
+# robe_lookup: [B, F] rows -> [B, F, dim]
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,f,dim,z", [
+    (16, 3, 24, 16),      # general regime (Z < d), d not a multiple of 128
+    (13, 4, 16, 16),      # aligned regime (Z % d == 0), prime batch
+    (7, 2, 8, 32),        # aligned, Z > d
+    (11, 3, 128, 32),     # the full model's regime: Z=32 < d=128
+    (5, 6, 40, 1),        # Z = 1: every element hashed alone
+])
+@pytest.mark.parametrize("use_sign", (False, True))
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_robe_lookup_matches_pallas_and_ref(b, f, dim, z, use_sign, dt):
+    js, ts = _specs(z, use_sign)
+    rs = np.random.RandomState(b * 7 + dim)
+    rows = rs.randint(0, 40_000_000, (b, f)).astype(np.int32)
+    rows[0, 0] = 2 ** 31 - 1                    # x*d past 2^32
+    mem = rs.randn(4096).astype(np.float32)
+    jmem = jnp.asarray(mem, JDT[dt])
+    tids = tuple(range(f))
+    got = tops.robe_lookup(_t(mem, dt), _t(rows), tids, dim, ts)
+    assert got.shape == (b, f, dim) and got.dtype == TDT[dt]
+    kernel = jops.robe_lookup(jmem, jnp.asarray(rows), tids, dim, js, True)
+    ref = jref.robe_lookup_ref(jmem, jnp.asarray(rows),
+                               jnp.arange(f, dtype=jnp.uint32), dim, js)
+    # a gather and a ±1 multiply: exactly equal
+    np.testing.assert_array_equal(_np(got), _np(kernel))
+    np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+def test_robe_lookup_field_subset_uses_given_table_ids():
+    js, ts = _specs(8, True)
+    rs = np.random.RandomState(0)
+    rows = rs.randint(0, 1000, (6, 2)).astype(np.int32)
+    mem = rs.randn(4096).astype(np.float32)
+    got = tops.robe_lookup(_t(mem), _t(rows), (3, 5), 16, ts)
+    want = jops.robe_lookup(jnp.asarray(mem), jnp.asarray(rows), (3, 5), 16,
+                            js, False)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+# ---------------------------------------------------------------------------
+# dot_interaction: [B, F, D] -> [B, F(F∓1)/2]
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,f,d", [(16, 3, 24), (13, 27, 128), (7, 5, 40),
+                                   (1, 2, 1)])
+@pytest.mark.parametrize("self_interaction", (False, True))
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_dot_interaction_matches_pallas_and_ref(b, f, d, self_interaction,
+                                                dt):
+    feats = np.random.RandomState(b + f + d).randn(b, f, d).astype(np.float32)
+    jf = jnp.asarray(feats, JDT[dt])
+    got = tops.dot_interaction(_t(feats, dt), self_interaction)
+    n = f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
+    assert got.shape == (b, n) and got.dtype == TDT[dt]
+    _close(got, jops.dot_interaction(jf, self_interaction, True), dt)
+    _close(got, jref.dot_interaction_ref(jf, self_interaction), dt)
+
+
+def test_dot_interaction_is_in_tril_order():
+    """Pair p is (i, j) of np.tril_indices: (1,0), (2,0), (2,1), (3,0)..."""
+    f, d = 5, 3
+    feats = torch.zeros(1, f, d)
+    for i in range(f):
+        feats[0, i, 0] = float(2 ** i)          # <e_i, e_j> = 2^(i+j)
+    got = tops.dot_interaction(feats)[0]
+    rows, cols = np.tril_indices(f, k=-1)
+    assert got.tolist() == [float(2 ** (i + j)) for i, j in zip(rows, cols)]
+
+
+# ---------------------------------------------------------------------------
+# serve_fused: idx [B, F(, bag)] + bot [B, d] -> [B, (F+1)F/2]
+# ---------------------------------------------------------------------------
+
+def _serve_inputs(b, f, bag, dim, seed):
+    rs = np.random.RandomState(seed)
+    shape = (b, f) if bag == 0 else (b, f, bag)
+    idx = rs.randint(0, 37, shape).astype(np.int32)
+    if bag:
+        idx[0, 0, 1:] = -1
+        idx[-1, f - 1, :] = -1                   # an empty bag pools to zero
+        idx[rs.rand(*shape) < 0.2] = -1
+    mem = rs.randn(4096).astype(np.float32)
+    bot = rs.randn(b, dim).astype(np.float32)
+    return idx, mem, bot
+
+
+@pytest.mark.parametrize("b,f,bag,dim,z", [
+    (16, 3, 0, 24, 16),   # [B, F] ids, the conformance harness's case
+    (13, 4, 0, 16, 16),   # prime batch, aligned regime
+    (7, 3, 0, 40, 16),    # d not a multiple of 128
+    (6, 4, 3, 24, 16),    # bag > 1 with -1 pads and an empty bag
+    (5, 3, 2, 128, 32),   # the full model's regime, bags
+])
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_serve_fused_matches_pallas_and_ref(b, f, bag, dim, z, dt):
+    js, ts = _specs(z, True)
+    idx, mem, bot = _serve_inputs(b, f, bag, dim, seed=b * f + bag)
+    tids = tuple(range(f))
+    got = tops.serve_fused(_t(mem, dt), _t(idx), _t(bot, dt), tids, dim, ts)
+    assert got.shape == (b, (f + 1) * f // 2) and got.dtype == TDT[dt]
+    jmem, jbot = jnp.asarray(mem, JDT[dt]), jnp.asarray(bot, JDT[dt])
+    kernel = jops.serve_fused(jmem, jnp.asarray(idx), jbot, tids, dim, js,
+                              True)
+    ref = jref.serve_fused_ref(jmem, jnp.asarray(idx), jbot,
+                               jnp.arange(f, dtype=jnp.uint32), dim, js)
+    _close(got, kernel, dt)
+    _close(got, ref, dt)
+
+
+def test_serve_fused_rounds_pooled_once_to_bot_dtype():
+    """f32 memory, bf16 bot: the f32 bag sum enters the gram rounded once
+    to bf16 -- the same as pooling in f32, casting, then the plain dot."""
+    _, ts = _specs(16, False)
+    idx, mem, bot = _serve_inputs(6, 4, 3, 24, seed=9)
+    m, i, bt = _t(mem), _t(idx), _t(bot, "bf16")
+    got = tops.serve_fused(m, i, bt, tuple(range(4)), 24, ts)
+    pooled = tops.robe_lookup(m, i.clamp_min(0).transpose(1, 2).reshape(
+        -1, 4), tuple(range(4)), 24, ts).reshape(6, 3, 4, 24).transpose(1, 2)
+    pooled = (pooled * (i >= 0)[..., None]).sum(dim=2).to(torch.bfloat16)
+    want = tops.dot_interaction(torch.cat([bt[:, None], pooled], dim=1))
+    assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: CPU tensors take the plain path, other devices raise, and the
+# forward-only ops refuse a backward
+# ---------------------------------------------------------------------------
+
+def test_ops_refuse_backward():
+    _, ts = _specs(16, False)
+    mem = torch.randn(4096, requires_grad=True)
+    rows = torch.randint(0, 100, (3, 2), dtype=torch.int32)
+    out = tops.robe_lookup(mem, rows, (0, 1), 16, ts)
+    with pytest.raises(NotImplementedError):
+        out.sum().backward()
+    feats = torch.randn(3, 4, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        tops.dot_interaction(feats).sum().backward()
+
+
+def test_ops_reject_other_devices():
+    _, ts = _specs(16, False)
+    mem = torch.randn(4096, device="meta")
+    rows = torch.zeros((3, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops.robe_lookup(mem, rows, (0, 1), 16, ts)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper launches only on CUDA tensors; a CPU tensor raises before
+    the library is built."""
+    _, ts = _specs(16, False)
+    mem = torch.randn(4096)
+    rows = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.robe_lookup_cuda(mem, rows, (0, 1), 16, ts)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dot_interaction_cuda(torch.randn(2, 3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.serve_fused_cuda(mem, rows, torch.randn(3, 16), (0, 1), 16, ts)
+
+
+def test_kernel_sources_and_bindings_agree():
+    """Each launcher the Python side binds is defined in csrc/ with as many
+    parameters as its ctypes signature has."""
+    import re
+    from repro_torch.kernels import _build
+    text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    for name, argtypes in _build.SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
