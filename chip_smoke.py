@@ -10,24 +10,29 @@ non-zero on failure:
 
 1. the card: ``nvidia-smi``'s name and power limit; the kernels' build
    (``nvcc`` for sm_90a, from ``src/repro_torch/kernels/csrc`` alone);
-2. each Hopper kernel against its plain PyTorch version on the card, at
-   the paper's ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32,
-   |M| = 26,135,627 f32 slots): ``robe_lookup`` exactly (torch.equal),
-   ``dot_interaction`` and ``serve_fused`` within rtol = atol = 1e-5 in
-   f32 and 1e-2 in bf16;
-3. the main path at full width, ``EmbeddingServer.score("robe", ...)``,
-   answering four padded batches of 512 requests (one with n_valid < 512)
-   through the fused path (``use_kernel=True``) and the unfused path on the
-   same weights, with every kernel's launch count set to 0 before each run
-   and read after it; the scores must be finite, the two paths must agree
-   within rtol = atol = 1e-4, and both must agree as closely with the same
+2. each of the six Hopper kernels against its plain PyTorch version on the
+   card, at the paper's ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32,
+   |M| = 26,135,627 slots; QR m = 8,192; TT factors (589, 589, 589), dims
+   (2, 8, 8), rank 8): ``robe_lookup`` and ``qrobe_lookup`` exactly
+   (torch.equal), ``qr_lookup`` exactly in f32 and within 1e-2 in bf16,
+   ``dot_interaction``, ``serve_fused`` and ``tt_lookup`` within
+   rtol = atol = 1e-5 in f32 and 1e-2 in bf16;
+3. the main paths at full width, each answering four padded batches of
+   512 requests (one with n_valid < 512) with every kernel's launch count
+   set to 0 before the path and read after it:
+   ``EmbeddingServer.score("robe", ...)`` through the fused path
+   (``use_kernel=True``) and the unfused path on the same weights, then
+   ``score`` for the ``qrobe``, ``hashed`` and ``tt`` substrates; the
+   scores must be finite, the two robe paths must agree within
+   rtol = atol = 1e-4, and every path must agree as closely with the same
    entry point run on the CPU (the plain versions);
 4. times with CUDA events (median of 21 repetitions, launches queued behind
    a sleep kernel so the host does not starve the card): each kernel at
-   B=512 and B=262144, its plain version at B=512, ``torch.bmm`` as the
-   library yardstick of ``dot_interaction``, and ``score`` end to end;
-   plus a ``torch.profiler`` breakdown of ``score`` at B=262144 by device
-   kernel, with the card's busy share of the window;
+   B=512 and B=262144 beside its bound, its plain version at B=512,
+   ``torch.bmm`` as the library yardstick of ``dot_interaction``, and
+   ``score`` end to end for every path; plus a ``torch.profiler``
+   breakdown of ``score`` at B=262144 by device kernel for every path,
+   with the card's busy share of the window;
 5. one JSON line of kernel numbers, then, last, the ok line.
 """
 
@@ -53,15 +58,27 @@ from repro_torch.core.robe import (RobeSpec, init_memory,
 from repro_torch.data import (CtrDataConfig, CtrStream,
                               RequestStream)
 from repro_torch.kernels import (_build, dot_interaction_cuda,
-                                 launch_counts, reset_launches,
-                                 robe_lookup_cuda, serve_fused_cuda)
-from repro_torch.kernels.ref import (dot_interaction_ref,
-                                     robe_lookup_ref, serve_fused_ref)
+                                 launch_counts, qr_lookup_cuda,
+                                 qrobe_lookup_cuda, reset_launches,
+                                 robe_lookup_cuda, serve_fused_cuda,
+                                 tt_lookup_cuda)
+from repro_torch.kernels.ref import (dot_interaction_ref, qr_indices,
+                                     qr_lookup_ref, qrobe_lookup_ref,
+                                     robe_lookup_ref, serve_fused_ref,
+                                     tt_indices, tt_lookup_ref)
+from repro_torch.nn.embedding_backends.hashed import (default_buckets,
+                                                      qr_layout)
+from repro_torch.nn.embedding_backends.qrobe import GROUP_LOG2
+from repro_torch.nn.embedding_backends.tt import factor_dim, factor_rows
 from repro_torch.serve.server import EmbeddingServer, ServerConfig
 
 SEED = 0
 F, D = 26, 128
 B_P99, B_BULK = 512, 262144           # RECSYS_SHAPES serve_p99 / serve_bulk
+#: the compressed substrates served beside robe, and the kernel each
+#: substrate's lookup runs
+SUBSTRATES = {"qrobe": "qrobe_lookup", "hashed": "qr_lookup",
+              "tt": "tt_lookup"}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 SCORE_TOL = 1e-4
 REPS = 21
@@ -78,6 +95,15 @@ KERNELS = {
     "serve_fused": dict(
         source="src/repro_torch/kernels/csrc/serve_fused.cu",
         replaces="src/repro/kernels/serve_fused.py:98"),
+    "qrobe_lookup": dict(
+        source="src/repro_torch/kernels/csrc/qrobe_lookup.cu",
+        replaces="src/repro/kernels/robe_lookup.py:214"),
+    "qr_lookup": dict(
+        source="src/repro_torch/kernels/csrc/qr_lookup.cu",
+        replaces="src/repro/kernels/qr_lookup.py:48"),
+    "tt_lookup": dict(
+        source="src/repro_torch/kernels/csrc/tt_lookup.cu",
+        replaces="src/repro/kernels/tt_lookup.py:57"),
 }
 
 
@@ -123,9 +149,24 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def check_kernels(gen, memory, spec, dev) -> dict:
+def qr_args(subs) -> tuple:
+    """(q_off, r_off, m) of the ``hashed`` substrate's full-width layout."""
+    vocabs = subs.recsys_config("hashed").vocab_sizes
+    m = default_buckets(vocabs)
+    _, q_off, r_off = qr_layout(vocabs, m)
+    return tuple(map(int, q_off)), tuple(map(int, r_off)), m
+
+
+def tt_args(subs) -> tuple:
+    """(offsets, factors) of the ``tt`` substrate's full-width layout."""
+    spec = subs.recsys_config("tt").embedding_spec()
+    return tuple(map(int, spec.offsets)), factor_rows(spec.total_rows)
+
+
+def check_kernels(gen, memory, spec, subs, dev) -> dict:
     """Max abs error of each kernel against its plain version, per dtype:
-    {kernel: {"float32": e, "bfloat16": e}}."""
+    {kernel: {"float32": e, "bfloat16": e}}.  ``subs`` is the server of the
+    compressed substrates, whose full-width params the lookups read."""
     err = {k: {"float32": 0.0, "bfloat16": 0.0} for k in KERNELS}
 
     def record(k, got, want):
@@ -188,6 +229,74 @@ def check_kernels(gen, memory, spec, dev) -> dict:
                         f"sign={s.use_sign}: max err {max_err(got, want)}")
                 record("serve_fused", got, want)
     torch.cuda.synchronize()
+
+    # qrobe_lookup: codes and scales from quantizing the full |M|-slot
+    # array; a gather, two f32 multiplies and one rounding, so exactly equal
+    qp = subs.params("qrobe")["embedding"]
+    qspec = subs.recsys_config("qrobe").embedding_spec().robe
+    scales = {torch.float32: qp["scale"],
+              torch.bfloat16: qp["scale"].to(torch.bfloat16)}
+    cases = [(b, dataclasses.replace(qspec, use_sign=s), dt, D)
+             for b in (B_P99, 509) for s in (False, True) for dt in scales]
+    cases.append((509, dataclasses.replace(aligned, size=qspec.size),
+                  torch.float32, 16))                      # Z = d = 16
+    for b, sp, dt, dim in cases:
+        got = qrobe_lookup_cuda(qp["codes"], scales[dt], rows[:b], tids, dim,
+                                sp, GROUP_LOG2)
+        want = qrobe_lookup_ref(qp["codes"], scales[dt], rows[:b], tids, dim,
+                                sp, GROUP_LOG2)
+        require(torch.equal(got, want),
+                f"qrobe_lookup B={b} Z={sp.block_size} d={dim} "
+                f"sign={sp.use_sign} {dt}: max err {max_err(got, want)}")
+        record("qrobe_lookup", got, want)
+    torch.cuda.synchronize()
+
+    # qr_lookup: one product rounded once, exactly equal in f32
+    hp = subs.params("hashed")["embedding"]
+    q_off, r_off, m = qr_args(subs)
+    for b in (B_P99, 509):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, r = hp["q_table"].to(dtype), hp["r_table"].to(dtype)
+            got = qr_lookup_cuda(q, r, rows[:b], q_off, r_off, m)
+            want = qr_lookup_ref(q, r, rows[:b], q_off, r_off, m)
+            tol = TOL[dtype]
+            same = torch.equal(got, want) if dtype == torch.float32 else \
+                torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            require(same and got.shape == (b, F, D),
+                    f"qr_lookup B={b} {dtype}: max err {max_err(got, want)}")
+            record("qr_lookup", got, want)
+    torch.cuda.synchronize()
+
+    # tt_lookup: the full-width cores, and rank 4 at dim 24 = 2*3*4
+    tp = subs.params("tt")["embedding"]
+    offsets, factors = tt_args(subs)
+    n1, n2, n3 = factors
+    d1, d2, d3 = factor_dim(24)
+    narrow = [torch.randn(shape, generator=gen, device=dev) for shape in
+              ((n1, d1, 4), (n2, 4, d2, 4), (n3, 4, d3))]
+    wide = [tp["core0"], tp["core1"], tp["core2"]]
+    for b, cores, dim in ((B_P99, wide, D), (509, wide, D), (509, narrow, 24)):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = [x.to(dtype) for x in cores]
+            got = tt_lookup_cuda(*c, rows[:b], offsets, factors, dim)
+            want = tt_lookup_ref(*c, rows[:b], offsets, factors, dim)
+            tol = TOL[dtype]
+            require(got.shape == (b, F, dim) and got.dtype == dtype
+                    and torch.allclose(got.float(), want.float(), rtol=tol,
+                                       atol=tol),
+                    f"tt_lookup B={b} d={dim} {dtype}: max err "
+                    f"{max_err(got, want)}")
+            record("tt_lookup", got, want)
+    torch.cuda.synchronize()
+
+    # an empty batch gives an empty output and launches nothing
+    empty = rows[:0]
+    for got in (qrobe_lookup_cuda(qp["codes"], qp["scale"], empty, tids, D,
+                                  qspec, GROUP_LOG2),
+                qr_lookup_cuda(hp["q_table"], hp["r_table"], empty, q_off,
+                               r_off, m),
+                tt_lookup_cuda(*wide, empty, offsets, factors, D)):
+        require(got.shape == (0, F, D), f"B=0 gave {tuple(got.shape)}")
     return err
 
 
@@ -221,10 +330,10 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def run_path(server, batches) -> tuple:
+def run_path(server, batches, backend: str = "robe") -> tuple:
     """Scores of every batch, with the launch counts of just this run."""
     reset_launches()
-    scores = [server.score("robe", b, n) for b, n in batches]
+    scores = [server.score(backend, b, n) for b, n in batches]
     torch.cuda.synchronize()
     return scores, launch_counts()
 
@@ -276,6 +385,38 @@ def main_path(cfg: ServerConfig) -> tuple:
     return fused, unfused, c_fused, c_unfused
 
 
+def substrate_paths(subs) -> dict:
+    """``score`` of each compressed substrate at full width: launch counts
+    of each path, finite scores, agreement with the CPU run of the same
+    entry point on the same params.  Returns {substrate: launch counts}."""
+    batches = padded_batches((512, 512, 437, 512), B_P99)
+    cpu = EmbeddingServer(subs.cfg, params={
+        k: to_device(subs.params(k), "cpu") for k in subs.backends},
+        device="cpu")
+    counts = {}
+    for kind, kernel in SUBSTRATES.items():
+        scores, c = run_path(subs, batches, kind)
+        counts[kind] = c
+        need = [kernel, "dot_interaction"] + \
+            (["robe_lookup"] if kind == "qrobe" else [])
+        print(f"launches {kind} path: {c}")
+        require(all(c[k] > 0 for k in need) and c["serve_fused"] == 0,
+                f"the {kind} path must launch {need} and not serve_fused")
+        diff = 0.0
+        for (batch, n), got in zip(batches, scores):
+            require(got.shape == (n,) and np.isfinite(got).all(),
+                    f"{kind}: scores of shape {got.shape}, expected ({n},), "
+                    f"or not finite")
+            want = cpu.score(kind, batch, n)
+            diff = max(diff, float(np.abs(got - want).max()))
+            require(np.allclose(got, want, rtol=SCORE_TOL, atol=SCORE_TOL),
+                    f"{kind}: card scores differ from the CPU run by "
+                    f"{np.abs(got - want).max()}")
+        print(f"{kind} path: 4 batches of {B_P99}, n_valid "
+              f"{[n for _, n in batches]}; card vs CPU max diff {diff}")
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
@@ -310,9 +451,9 @@ def host_ms(fn, reps: int = REPS) -> float:
     return statistics.median(per)
 
 
-def touched_slots(spec, idx, chunk: int = 8192) -> int:
-    """Distinct slots of M a lookup of ``idx`` [B, F(, bag)] reads (-1 pads
-    read nothing): what this run's data needs from M."""
+def touched_slots(spec, idx, chunk: int = 8192) -> torch.Tensor:
+    """Mask of the slots of M a lookup of ``idx`` [B, F(, bag)] reads (-1
+    pads read nothing): what this run's data needs from M."""
     seen = torch.zeros(spec.size, dtype=torch.bool, device=idx.device)
     tids = torch.arange(F, device=idx.device).view(
         (1, F) + (1,) * (idx.dim() - 2))
@@ -320,7 +461,11 @@ def touched_slots(spec, idx, chunk: int = 8192) -> int:
         part = idx[s:s + chunk]
         slots = robe_slots(spec, tids, part.clamp_min(0), D)
         seen[slots[part >= 0]] = True
-    return int(seen.sum())
+    return seen
+
+
+def n_unique(t: torch.Tensor) -> int:
+    return int(torch.unique(t).numel())
 
 
 def bound(bytes_moved: float, flops: float, rates: tuple) -> tuple:
@@ -336,9 +481,32 @@ def bulk_inputs(gen, dev, b: int, n: int) -> list:
             for k in range(n)]
 
 
-def time_kernels(gen, memory, spec, rates, dev) -> dict:
+def time_kernels(gen, memory, spec, subs, rates, dev) -> dict:
     tids = tuple(range(F))
     p = (F + 1) * F // 2
+    qp = subs.params("qrobe")["embedding"]
+    qspec = subs.recsys_config("qrobe").embedding_spec().robe
+    hp = subs.params("hashed")["embedding"]
+    q_off, r_off, m = qr_args(subs)
+    tp = subs.params("tt")["embedding"]
+    cores = (tp["core0"], tp["core1"], tp["core2"])
+    offsets, factors = tt_args(subs)
+    (d1, d2, d3), rank = factor_dim(D), cores[0].shape[2]
+    calls = {   # kernel -> (CUDA call, plain call) on [B, F] rows
+        "qrobe_lookup": (
+            lambda r: qrobe_lookup_cuda(qp["codes"], qp["scale"], r, tids, D,
+                                        qspec, GROUP_LOG2),
+            lambda r: qrobe_lookup_ref(qp["codes"], qp["scale"], r, tids, D,
+                                       qspec, GROUP_LOG2)),
+        "qr_lookup": (
+            lambda r: qr_lookup_cuda(hp["q_table"], hp["r_table"], r, q_off,
+                                     r_off, m),
+            lambda r: qr_lookup_ref(hp["q_table"], hp["r_table"], r, q_off,
+                                    r_off, m)),
+        "tt_lookup": (
+            lambda r: tt_lookup_cuda(*cores, r, offsets, factors, D),
+            lambda r: tt_lookup_ref(*cores, r, offsets, factors, D)),
+    }
     out = {k: {} for k in KERNELS}
     for b, n_in in ((B_P99, 8), (B_BULK, 1)):
         tag = "" if b == B_P99 else "_bulk"
@@ -347,34 +515,49 @@ def time_kernels(gen, memory, spec, rates, dev) -> dict:
                  for _ in range(n_in)]
         bots = [torch.randn((b, D), generator=gen, device=dev)
                 for _ in range(n_in)]
-        uniq = touched_slots(spec, rows[0])
+        seen = touched_slots(spec, rows[0])      # qrobe hashes as robe does
+        uniq = int(seen.sum())
+        groups = n_unique(torch.nonzero(seen).flatten() >> GROUP_LOG2)
+        qi, ri = qr_indices(rows[0], q_off, r_off, m)
+        i1, i2, i3 = tt_indices(rows[0], offsets, factors)
+        out_bytes = b * F * D * 4
+        touched = {   # kernel -> (bytes, FLOP) this run's data needs
+            "robe_lookup": (b * F * 4 + uniq * 4 + out_bytes, 0),
+            "dot_interaction": (b * (F + 1) * D * 4 + b * p * 4,
+                                2 * b * p * D),
+            "serve_fused": (b * F * 4 + b * D * 4 + uniq * 4 + b * p * 4,
+                            2 * b * p * D + b * F * D),
+            "qrobe_lookup": (b * F * 4 + uniq + groups * 4 + out_bytes,
+                             b * F * D * (2 if qspec.use_sign else 1)),
+            "qr_lookup": (b * F * 4 + (n_unique(qi) + n_unique(ri)) * D * 4
+                          + out_bytes, b * F * D),
+            "tt_lookup": (b * F * 4 + 4 * (n_unique(i1) * d1 * rank
+                                           + n_unique(i2) * rank * d2 * rank
+                                           + n_unique(i3) * rank * d3)
+                          + out_bytes,
+                          b * F * 2 * (d1 * d2 * rank * rank
+                                       + d1 * d2 * d3 * rank)),
+        }
         torch.cuda.synchronize()
+        for k, (nbytes, flops) in touched.items():
+            o = out[k]
+            o["bound_ms" + tag], o["bound_by" + tag] = bound(nbytes, flops,
+                                                             rates)
+            o["library_ms" + tag] = None
+        out["robe_lookup"]["touched_slots" + tag] = uniq
 
-        o = out["robe_lookup"]
-        o["ms" + tag] = device_ms(
+        out["robe_lookup"]["ms" + tag] = device_ms(
             lambda r: robe_lookup_cuda(memory, r, tids, D, spec),
             [(r,) for r in rows])
-        o["bound_ms" + tag], o["bound_by" + tag] = bound(
-            b * F * 4 + uniq * 4 + b * F * D * 4, 0, rates)
-        o["library_ms" + tag] = None
-        o["touched_slots" + tag] = uniq
-
-        o = out["dot_interaction"]
-        o["ms" + tag] = device_ms(dot_interaction_cuda,
-                                  [(x,) for x in feats])
-        o["bound_ms" + tag], o["bound_by" + tag] = bound(
-            b * (F + 1) * D * 4 + b * p * 4, 2 * b * p * D, rates)
-        o["library_ms" + tag] = device_ms(
+        out["dot_interaction"]["ms" + tag] = device_ms(
+            dot_interaction_cuda, [(x,) for x in feats])
+        out["dot_interaction"]["library_ms" + tag] = device_ms(
             lambda x: torch.bmm(x, x.transpose(1, 2)), [(x,) for x in feats])
-
-        o = out["serve_fused"]
-        o["ms" + tag] = device_ms(
+        out["serve_fused"]["ms" + tag] = device_ms(
             lambda r, bt: serve_fused_cuda(memory, r, bt, tids, D, spec),
             list(zip(rows, bots)))
-        o["bound_ms" + tag], o["bound_by" + tag] = bound(
-            b * F * 4 + b * D * 4 + uniq * 4 + b * p * 4,
-            2 * b * p * D + b * F * D, rates)
-        o["library_ms" + tag] = None
+        for k, (cuda, _) in calls.items():
+            out[k]["ms" + tag] = device_ms(cuda, [(r,) for r in rows])
 
         if b == B_P99:
             out["robe_lookup"]["plain_ms"] = device_ms(
@@ -385,36 +568,37 @@ def time_kernels(gen, memory, spec, rates, dev) -> dict:
             out["serve_fused"]["plain_ms"] = device_ms(
                 lambda r, bt: serve_fused_ref(memory, r, bt, tids, D, spec),
                 list(zip(rows, bots)))
-        del rows, feats, bots
+            for k, (_, plain) in calls.items():
+                out[k]["plain_ms"] = device_ms(plain, [(r,) for r in rows])
+        del rows, feats, bots, seen, qi, ri, i1, i2, i3
         torch.cuda.empty_cache()
     return out
 
 
-def time_scores(fused, unfused) -> dict:
+def time_scores(paths: dict, batches: dict) -> dict:
+    """Host-clock ``score`` time per batch of every path ({label: (server,
+    backend)}) at each size of ``batches`` ({size: (batch, n_valid)})."""
     out = {}
-    for size in (B_P99, B_BULK):
-        (batch, n), = padded_batches((size,), size)
-        for name, server in (("fused", fused), ("unfused", unfused)):
-            out[f"{name}_{size}"] = host_ms(
-                lambda: server.score("robe", batch, n))
+    for size, (batch, n) in batches.items():
+        for label, (server, backend) in paths.items():
+            out[f"{label}_{size}"] = host_ms(
+                lambda: server.score(backend, batch, n))
     return out
 
 
-def profile_scores(fused, unfused, size: int = B_BULK, calls: int = 3
-                   ) -> dict:
+def profile_scores(paths: dict, batch, n: int, calls: int = 3) -> dict:
     """Device time per ``score`` call by kernel name (``torch.profiler``),
-    and the card's busy share of the host-clock window, per serve path."""
+    and the card's busy share of the host-clock window, per path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    (batch, n), = padded_batches((size,), size)
     out = {}
-    for name, server in (("fused", fused), ("unfused", unfused)):
-        server.score("robe", batch, n)
+    for label, (server, backend) in paths.items():
+        server.score(backend, batch, n)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(calls):
-                server.score("robe", batch, n)
+                server.score(backend, batch, n)
             wall_us = (time.perf_counter() - t0) * 1e6
         per = {}
         for evt in prof.events():
@@ -423,10 +607,10 @@ def profile_scores(fused, unfused, size: int = B_BULK, calls: int = 3
                     evt.time_range.elapsed_us()
         busy = sum(per.values())
         top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-        out[name] = {"wall_ms": wall_us / calls / 1e3,
-                     "device_ms": busy / calls / 1e3,
-                     "busy_share": busy / wall_us if per else None,
-                     "top_ms": {k: v / calls / 1e3 for k, v in top}}
+        out[label] = {"wall_ms": wall_us / calls / 1e3,
+                      "device_ms": busy / calls / 1e3,
+                      "busy_share": busy / wall_us if per else None,
+                      "top_ms": {k: v / calls / 1e3 for k, v in top}}
     return out
 
 
@@ -463,21 +647,31 @@ def main() -> int:
     gen.manual_seed(SEED)
     memory = init_memory(gen, spec, dev)
 
+    # the compressed substrates' server: each backend's own full-width init
+    # (qrobe quantizes a full |M|-slot array), read by phases 2 to 4
+    subs = EmbeddingServer(dataclasses.replace(
+        cfg, backends=tuple(SUBSTRATES)), device="cuda")
+
     t0 = time.perf_counter()
-    err = check_kernels(gen, memory, spec, dev)
+    err = check_kernels(gen, memory, spec, subs, dev)
     print(f"kernels match their plain versions ({time.perf_counter() - t0:.1f}"
           f" s): max abs err {err}")
 
     t0 = time.perf_counter()
     with torch.inference_mode():
         fused, unfused, c_fused, c_unfused = main_path(cfg)
-    print(f"main path ok ({time.perf_counter() - t0:.1f} s)")
+        c_subs = substrate_paths(subs)
+    print(f"main paths ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    paths = {"fused": (fused, "robe"), "unfused": (unfused, "robe"),
+             **{kind: (subs, kind) for kind in SUBSTRATES}}
+    batches = {size: padded_batches((size,), size)[0]
+               for size in (B_P99, B_BULK)}
     with torch.inference_mode():
-        times = time_kernels(gen, memory, spec, rates, dev)
-        scores = time_scores(fused, unfused)
-        prof = profile_scores(fused, unfused)
+        times = time_kernels(gen, memory, spec, subs, rates, dev)
+        scores = time_scores(paths, batches)
+        prof = profile_scores(paths, *batches[B_BULK])
     print(f"timing done ({time.perf_counter() - t0:.1f} s)")
     print(json.dumps({"profile_score_262144": prof}))
     print(json.dumps({"score_ms": scores, "batch": B_P99,
@@ -485,7 +679,8 @@ def main() -> int:
 
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],
-                "serve_fused": c_fused["serve_fused"]}
+                "serve_fused": c_fused["serve_fused"],
+                **{k: c_subs[kind][k] for kind, k in SUBSTRATES.items()}}
     kernels = []
     for k, meta in KERNELS.items():
         row = {"name": k, "route": "cuda", **meta, "launches": launches[k],

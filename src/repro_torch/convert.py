@@ -3,7 +3,9 @@
 ``params_from_numpy(tree, device)`` turns ``repro``'s parameter tree, given
 as numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), into
 the port's tree with the same keys: dicts, lists, dense ``w`` as
-``[d_in, d_out]`` and ``embedding.memory`` as a 1-D array.
+``[d_in, d_out]`` and ``embedding.memory`` as a 1-D array.  Every leaf keeps
+its numpy dtype: ``qrobe``'s int8 ``codes`` arrive as ``torch.int8``, its
+f32 ``scale`` and ``delta`` as ``torch.float32``.
 """
 
 from __future__ import annotations

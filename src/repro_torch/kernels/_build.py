@@ -29,9 +29,10 @@ LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_p, _i, _u64p, _u32p = (ctypes.c_void_p, ctypes.c_int,
-                        ctypes.POINTER(ctypes.c_uint64),
-                        ctypes.POINTER(ctypes.c_uint32))
+_p, _i, _u64p, _u32p, _i32p = (ctypes.c_void_p, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_uint64),
+                               ctypes.POINTER(ctypes.c_uint32),
+                               ctypes.POINTER(ctypes.c_int32))
 MAX_FIELDS = 128      # ROBE_MAX_FIELDS in csrc/robe_common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,6 +44,12 @@ SIGNATURES = {
     "dot_interaction_launch": (_p, _p, _i, _i, _i, _i, _i, _p),
     "serve_fused_launch": (_p, _p, _p, _p, _i, _i, _i, _i, _u64p, _u32p, _i,
                            _i, _i, _i, _p),
+    "qrobe_lookup_launch": (_p, _p, _p, _p, _i, _i, _u64p, _u32p, _i, _i, _i,
+                            _i, _i, _p),
+    "qr_lookup_launch": (_p, _p, _p, _p, _i, _i, _i32p, _i32p, _i, _i, _i,
+                         _p),
+    "tt_lookup_launch": (_p, _p, _p, _p, _p, _i, _i, _i32p, _i, _i, _i, _i,
+                         _i, _i, _i, _p),
 }
 
 
@@ -149,6 +156,17 @@ def hash_args(spec, tids: tuple) -> tuple:
     coeffs = spec.hash_fn().coefficients() + spec.sign_fn().coefficients()
     return ((ctypes.c_uint64 * 12)(*coeffs),
             (ctypes.c_uint32 * len(tids))(*tids))
+
+
+@functools.lru_cache(maxsize=64)
+def field_args(values: tuple):
+    """A ctypes int32 array of per-field row offsets for a launcher (1 to
+    MAX_FIELDS of them, each in [0, 2^31)); cached, and only read."""
+    if not 0 < len(values) <= MAX_FIELDS or min(values) < 0 or \
+            max(values) >= 2 ** 31:
+        raise ValueError(f"need 1..{MAX_FIELDS} offsets in [0, 2^31), got "
+                         f"{len(values)}")
+    return (ctypes.c_int32 * len(values))(*values)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -19,10 +19,15 @@ import torch
 from repro_torch.core.robe import RobeSpec
 from repro_torch.kernels.dot_interaction import (dot_interaction_cuda,
                                                  dot_interaction_ref)
+from repro_torch.kernels.qr_lookup import qr_lookup_cuda, qr_lookup_ref
+from repro_torch.kernels.qrobe_lookup import (qrobe_lookup_cuda,
+                                              qrobe_lookup_ref)
 from repro_torch.kernels.robe_lookup import robe_lookup_cuda, robe_lookup_ref
 from repro_torch.kernels.serve_fused import serve_fused_cuda, serve_fused_ref
+from repro_torch.kernels.tt_lookup import tt_lookup_cuda, tt_lookup_ref
 
-__all__ = ["robe_lookup", "dot_interaction", "serve_fused"]
+__all__ = ["robe_lookup", "dot_interaction", "serve_fused", "qrobe_lookup",
+           "qr_lookup", "tt_lookup"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -62,6 +67,27 @@ class _ServeFused(_ForwardOnly):
         return fn(memory, idx, bot, table_ids, dim, spec)
 
 
+class _QrobeLookup(_ForwardOnly):
+    @staticmethod
+    def forward(ctx, codes, scale, rows, table_ids, dim, spec, group_log2):
+        fn = qrobe_lookup_cuda if _on_cuda(codes) else qrobe_lookup_ref
+        return fn(codes, scale, rows, table_ids, dim, spec, group_log2)
+
+
+class _QrLookup(_ForwardOnly):
+    @staticmethod
+    def forward(ctx, q_table, r_table, idx, q_off, r_off, m):
+        fn = qr_lookup_cuda if _on_cuda(q_table) else qr_lookup_ref
+        return fn(q_table, r_table, idx, q_off, r_off, m)
+
+
+class _TtLookup(_ForwardOnly):
+    @staticmethod
+    def forward(ctx, core0, core1, core2, idx, offsets, factors, dim):
+        fn = tt_lookup_cuda if _on_cuda(core0) else tt_lookup_ref
+        return fn(core0, core1, core2, idx, offsets, factors, dim)
+
+
 def robe_lookup(memory: torch.Tensor, rows: torch.Tensor, table_ids,
                 dim: int, spec: RobeSpec) -> torch.Tensor:
     """[B, F] int32 rows -> [B, F, dim] embeddings through the ROBE array."""
@@ -83,3 +109,30 @@ def serve_fused(memory: torch.Tensor, idx: torch.Tensor, bot: torch.Tensor,
     ``bot``'s dtype.
     """
     return _ServeFused.apply(memory, idx, bot, tuple(table_ids), dim, spec)
+
+
+def qrobe_lookup(codes: torch.Tensor, scale: torch.Tensor, rows: torch.Tensor,
+                 table_ids, dim: int, spec: RobeSpec,
+                 group_log2: int) -> torch.Tensor:
+    """[B, F] int32 rows -> [B, F, dim] embeddings dequantized from the int8
+    ROBE array ``codes`` against per-group ``scale``, in ``scale``'s dtype
+    (one rounding)."""
+    return _QrobeLookup.apply(codes, scale, rows, tuple(table_ids), dim, spec,
+                              group_log2)
+
+
+def qr_lookup(q_table: torch.Tensor, r_table: torch.Tensor, idx: torch.Tensor,
+              q_off, r_off, m: int) -> torch.Tensor:
+    """[B, F] int32 ids -> [B, F, dim] as ``Q[id // m + q_off[f]] *
+    R[id % m + r_off[f]]``, in ``q_table``'s dtype."""
+    return _QrLookup.apply(q_table, r_table, idx, tuple(q_off), tuple(r_off),
+                           m)
+
+
+def tt_lookup(core0: torch.Tensor, core1: torch.Tensor, core2: torch.Tensor,
+              idx: torch.Tensor, offsets, factors, dim: int) -> torch.Tensor:
+    """[B, F] int32 ids (+ per-field ``offsets``) -> [B, F, dim] by the chain
+    G1[i1]·G2[i2]·G3[i3] over the mixed-radix split of the global row over
+    ``factors`` = (n1, n2, n3), in the cores' dtype."""
+    return _TtLookup.apply(core0, core1, core2, idx, tuple(offsets),
+                           tuple(factors), dim)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three serve-path kernels.
+"""Plain PyTorch versions of the six serve-path kernels.
 
 Each function is the semantics its Hopper kernel is held against: the CPU
 path of ``repro_torch.kernels.ops`` runs them, the tests hold them against
@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.robe import RobeSpec, robe_lookup as _core_lookup
+from repro_torch.core.robe import (RobeSpec, robe_lookup as _core_lookup,
+                                   robe_signs, robe_slots)
 
 
 def robe_lookup_ref(memory: torch.Tensor, rows: torch.Tensor,
@@ -20,6 +21,30 @@ def robe_lookup_ref(memory: torch.Tensor, rows: torch.Tensor,
     """[B, F] rows (+ per-field table ids) -> [B, F, dim] embeddings."""
     tids = torch.as_tensor(table_ids, dtype=torch.int64, device=rows.device)
     return _core_lookup(memory, spec, tids[None, :], rows, dim)
+
+
+def qrobe_dequant_ref(codes: torch.Tensor, scale: torch.Tensor,
+                      group_log2: int) -> torch.Tensor:
+    """The f32 array an int8 ROBE substrate represents: slot s is
+    ``codes[s] · scale[s >> group_log2]``, all in f32."""
+    gidx = torch.arange(codes.shape[0], device=codes.device) >> group_log2
+    return codes.to(torch.float32) * scale.to(torch.float32)[gidx]
+
+
+def qrobe_lookup_ref(codes: torch.Tensor, scale: torch.Tensor,
+                     rows: torch.Tensor, table_ids, dim: int,
+                     spec: RobeSpec, group_log2: int) -> torch.Tensor:
+    """[B, F] rows -> [B, F, dim]: int8 codes gathered through the ROBE
+    hash, each dequantized in f32 against the scale of its (wrapped) slot's
+    group, times the ±1 sign, rounded ONCE into ``scale.dtype``."""
+    tids = torch.as_tensor(table_ids, dtype=torch.int64,
+                           device=rows.device)[None, :]
+    slots = robe_slots(spec, tids, rows, dim)            # [B, F, dim] int64
+    out = codes[slots].to(torch.float32) * \
+        scale.to(torch.float32)[slots >> group_log2]
+    if spec.use_sign:
+        out = out * robe_signs(spec, tids, rows, dim)
+    return out.to(scale.dtype)
 
 
 def dot_interaction_ref(feats: torch.Tensor, self_interaction: bool = False
@@ -58,3 +83,48 @@ def serve_fused_ref(memory: torch.Tensor, idx: torch.Tensor,
     pooled = (emb.to(torch.float32) * mask[..., None]).sum(dim=2)
     feats = torch.cat([bot[:, None, :], pooled.to(bot.dtype)], dim=1)
     return dot_interaction_ref(feats, False)
+
+
+def qr_indices(idx: torch.Tensor, q_off, r_off, m: int) -> tuple:
+    """[B, F] ids -> (q_idx, r_idx) rows of the concatenated Q / R tables,
+    with floor division and remainder as ``jnp`` takes them."""
+    q = torch.as_tensor(q_off, dtype=idx.dtype, device=idx.device)[None, :]
+    r = torch.as_tensor(r_off, dtype=idx.dtype, device=idx.device)[None, :]
+    return idx // m + q, idx % m + r
+
+
+def tt_indices(idx: torch.Tensor, offsets, factors) -> tuple:
+    """[B, F] ids -> (i1, i2, i3) core rows of the global row id + off[f],
+    mixed-radix over ``factors`` = (n1, n2, n3) with i3 fastest."""
+    _, n2, n3 = factors
+    g = idx + torch.as_tensor(offsets, dtype=idx.dtype,
+                              device=idx.device)[None, :]
+    rest = g // n3
+    return rest // n2, rest % n2, g % n3
+
+
+def qr_lookup_ref(q_table: torch.Tensor, r_table: torch.Tensor,
+                  idx: torch.Tensor, q_off, r_off, m: int) -> torch.Tensor:
+    """``Q[id // m + q_off[f]] * R[id % m + r_off[f]]`` -> [B, F, dim]: one
+    f32 product, rounded once to ``q_table.dtype``."""
+    q_idx, r_idx = qr_indices(idx, q_off, r_off, m)
+    prod = q_table[q_idx.long()].to(torch.float32) * \
+        r_table[r_idx.long()].to(torch.float32)
+    return prod.to(q_table.dtype)
+
+
+def tt_lookup_ref(core0: torch.Tensor, core1: torch.Tensor,
+                  core2: torch.Tensor, idx: torch.Tensor, offsets,
+                  factors, dim: int) -> torch.Tensor:
+    """Per-row tensor-train chain G1[i1]·G2[i2]·G3[i3] -> [B, F, dim].
+
+    ``t = c1·c2`` is accumulated in f32 and not rounded; ``e = t·c3`` in
+    f32, rounded once to the core dtype.
+    """
+    i1, i2, i3 = tt_indices(idx, offsets, factors)
+    c1 = core0[i1.long()].to(torch.float32)          # [B, F, d1, r]
+    c2 = core1[i2.long()].to(torch.float32)          # [B, F, r, d2, r]
+    c3 = core2[i3.long()].to(torch.float32)          # [B, F, r, d3]
+    t = torch.einsum("...ap,...pbq->...abq", c1, c2)
+    e = torch.einsum("...abq,...qc->...abc", t, c3)
+    return e.reshape(e.shape[:-3] + (dim,)).to(core0.dtype)

@@ -35,6 +35,8 @@ class RecsysConfig:
     embedding: str = "robe"
     robe_size: int = 0
     robe_block: int = 32
+    hashed_buckets: int = 0          # QR remainder buckets (0 = auto)
+    tt_rank: int = 0                 # tensor-train core rank (0 = default)
     #: serve path: True takes the fused serve kernel, False the unfused
     #: lookup -> concat -> dot_interaction kernels
     use_kernel: bool = False
@@ -47,7 +49,8 @@ class RecsysConfig:
                             seed=11)
         return EmbeddingSpec(vocab_sizes=self.vocab_sizes,
                              dim=self.embed_dim, kind=self.embedding,
-                             robe=robe)
+                             robe=robe, hashed_buckets=self.hashed_buckets,
+                             tt_rank=self.tt_rank)
 
     @property
     def n_fields(self) -> int:
@@ -108,7 +111,8 @@ def _dlrm_interaction(params, cfg: RecsysConfig, batch: dict,
 
     On the serve path with ``use_kernel`` set, a backend that offers
     ``fused_serve`` (robe) computes lookup -> bag-pool -> gram in one
-    kernel.  Everywhere else: the unfused lookup + dot_interaction.
+    kernel.  Everywhere else (and for qrobe, hashed and tt, which decline
+    it): the unfused lookup + dot_interaction.
     """
     if serve and cfg.use_kernel and "emb" not in batch:
         spec = cfg.embedding_spec()

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 #: backends of the JAX package that this package does not have yet
-NOT_YET_PORTED = ("full", "hashed", "tt", "qrobe")
+NOT_YET_PORTED = ("full",)
 
 
 class EmbeddingBackend:

@@ -30,6 +30,8 @@ class EmbeddingSpec:
     kind: str = "robe"                    # any registered backend name
     robe: Optional[RobeSpec] = None
     placement: str = "default"            # backend-interpreted layout knob
+    hashed_buckets: int = 0               # QR remainder buckets (0 = auto)
+    tt_rank: int = 0                      # TT core rank (0 = default 8)
 
     def __post_init__(self):
         object.__setattr__(self, "vocab_sizes",

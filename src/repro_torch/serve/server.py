@@ -1,18 +1,23 @@
-"""Embedding server (PyTorch port of ``repro.serve.server``; the ``robe``
-substrate only, so far).
+"""Embedding server (PyTorch port of ``repro.serve.server``; the ``robe``,
+``qrobe``, ``hashed`` and ``tt`` substrates).
 
 One ``EmbeddingServer`` holds a DLRM scoring model per resident substrate
-and routes each request to it through ``serve_scores``: the fused
-``serve_fused`` kernel when ``use_kernel``, else the unfused
-``robe_lookup`` -> concat -> ``dot_interaction`` kernels.  On the card
-every path runs the Hopper kernels; on the CPU (``device="cpu"``) the
-plain versions.
+and routes each request to it through ``serve_scores``.  For ``robe`` with
+``use_kernel`` that is the fused ``serve_fused`` kernel, else the unfused
+``robe_lookup`` -> concat -> ``dot_interaction`` kernels.  ``qrobe``,
+``hashed`` and ``tt`` decline the fused path and always take the unfused
+one, with their own lookup kernels (``qrobe_lookup`` plus ``robe_lookup``
+for its delta term, ``qr_lookup``, ``tt_lookup``).  On the card every path
+runs the Hopper kernels; on the CPU (``device="cpu"``) the plain versions.
 
 Batches arrive padded to a fixed shape with ``n_valid`` leading real rows
 (the router's ``stack_and_pad`` contract); the scorer returns only the real
-rows.  ``robe`` declines the hot-row cache, as in the JAX package, so
-``cache_capacity`` builds no cache here.  Model pushes, cache warming and
-the other substrates are not yet ported.
+rows.  ``robe`` and ``qrobe`` decline the hot-row cache, as in the JAX
+package.  The JAX server fronts ``hashed`` with a ``HotRowCache``; this
+port builds no cache yet, so ``cache_capacity`` is not read.  Scores are
+the same either way: by the ``cacheable_rows`` contract the cached rows are
+bit-identical to the ones the lookup gathers.  Model pushes, cache warming
+and the ``full`` substrate are not yet ported.
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ DEFAULT_BACKENDS = ("robe",)
 class ServerConfig:
     """One scoring model per substrate, shared architecture.
 
-    ``robe_compression`` sizes the ROBE array at 1/compression of the full
-    table's parameters (the paper's 1000× knob); ``cache_capacity`` rows
-    per cacheable substrate (robe declines the cache); ``use_kernel``
-    routes robe serving through the one-pass ``serve_fused`` kernel.
+    ``robe_compression`` sizes the ROBE array (robe, qrobe) at
+    1/compression of the full table's parameters (the paper's 1000× knob);
+    ``cache_capacity`` rows per cacheable substrate (no cache is built yet);
+    ``use_kernel`` routes robe serving through the one-pass ``serve_fused``
+    kernel.
     """
 
     vocab_sizes: Tuple[int, ...]

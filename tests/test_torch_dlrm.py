@@ -3,10 +3,11 @@
 Parameters come from ``repro.models.recsys.init_params`` and are carried
 into the port with ``convert.params_from_numpy`` (the two frameworks' random
 streams differ), so both packages score the same model on the same
-batches.  Scores must agree within rtol = atol = 1e-5 in f32, on both
-serve paths (``use_kernel`` True: the fused serve op; False: lookup ->
-concat -> dot interaction), on the CPU where the port runs its plain
-versions.  The configs, the data streams and the server's ``n_valid``
+batches.  Scores must agree within rtol = atol = 1e-5 in f32, for each
+ported substrate (robe, qrobe, hashed, tt) and on both serve paths
+(``use_kernel`` True: the fused serve op where the substrate has one;
+False: lookup -> concat -> dot interaction), on the CPU where the port runs
+its plain versions.  The configs, the data streams and the server's ``n_valid``
 slicing are checked against the JAX package too.
 """
 
@@ -36,11 +37,14 @@ from repro_torch.serve.server import EmbeddingServer, ServerConfig
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("dlrm-rm2", "dlrm-criteo-tb")
+EMBEDDINGS = ("robe", "qrobe", "hashed", "tt")
 
 
-def _configs(arch: str, use_kernel: bool):
-    jcfg = j_get_arch(arch).make_config("smoke", use_kernel=use_kernel)
-    tcfg = t_get_arch(arch).make_config("smoke", use_kernel=use_kernel)
+def _configs(arch: str, use_kernel: bool, embedding: str = "robe"):
+    jcfg = j_get_arch(arch).make_config("smoke", embedding=embedding,
+                                        use_kernel=use_kernel)
+    tcfg = t_get_arch(arch).make_config("smoke", embedding=embedding,
+                                        use_kernel=use_kernel)
     return jcfg, tcfg
 
 
@@ -55,11 +59,12 @@ def _to_torch(batch: dict) -> dict:
     return {k: torch.from_numpy(batch[k]) for k in ("dense", "sparse")}
 
 
+@pytest.mark.parametrize("embedding", EMBEDDINGS)
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("use_kernel", (False, True), ids=("unfused", "fused"))
 @pytest.mark.parametrize("b", (16, 13))
-def test_serve_scores_match_jax(arch, use_kernel, b):
-    jcfg, tcfg = _configs(arch, use_kernel)
+def test_serve_scores_match_jax(embedding, arch, use_kernel, b):
+    jcfg, tcfg = _configs(arch, use_kernel, embedding)
     jparams = jrec.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     batch = _batch(jcfg, b, seed=5)
@@ -100,28 +105,35 @@ def test_emb_key_bypasses_the_lookup():
     np.testing.assert_allclose(cached.numpy(), direct.numpy(), **TOL)
 
 
-def test_server_scores_match_jax_and_slice_to_n_valid():
+@pytest.mark.parametrize("embedding", EMBEDDINGS)
+def test_server_scores_match_jax_and_slice_to_n_valid(embedding):
     kw = dict(vocab_sizes=(1000, 500, 2000, 100, 50, 300), embed_dim=16,
               n_dense=13, bot_mlp=(64, 16), top_mlp=(32, 1),
-              backends=("robe",), robe_compression=10, robe_block=16,
+              backends=(embedding,), robe_compression=10, robe_block=16,
               cache_capacity=0)
     for use_kernel in (False, True):
         jsrv = JServer(JServerConfig(use_kernel=use_kernel, **kw))
         params = params_from_numpy(
-            {"robe": jax.tree.map(np.asarray, jsrv.params("robe"))}, "cpu")
+            {embedding: jax.tree.map(np.asarray, jsrv.params(embedding))},
+            "cpu")
         tsrv = EmbeddingServer(ServerConfig(use_kernel=use_kernel, **kw),
                                params=params, device="cpu")
-        assert tsrv.recsys_config("robe").robe_size == \
-            jsrv.recsys_config("robe").robe_size
-        batch = _batch(tsrv.recsys_config("robe"), 32, seed=4)
+        assert tsrv.recsys_config(embedding) == dataclasses.replace(
+            tsrv.recsys_config(embedding),
+            **{f.name: getattr(jsrv.recsys_config(embedding), f.name)
+               for f in dataclasses.fields(tsrv.recsys_config(embedding))
+               if f.name != "compute_dtype"})
+        batch = _batch(tsrv.recsys_config(embedding), 32, seed=4)
         batch = {k: batch[k] for k in ("dense", "sparse")}
-        got = tsrv.score("robe", batch, n_valid=21)
-        want = jsrv.score("robe", batch, n_valid=21)
+        tk.reset_launches()
+        got = tsrv.score(embedding, batch, n_valid=21)
+        want = jsrv.score(embedding, batch, n_valid=21)
         assert got.shape == (21,)
         np.testing.assert_allclose(got, want, **TOL)
-        fn = tsrv.score_fn("robe")
+        fn = tsrv.score_fn(embedding)
         np.testing.assert_array_equal(fn(batch, n_valid=21), got)
-        assert tsrv.score("robe", batch).shape == (32,)
+        assert tsrv.score(embedding, batch).shape == (32,)
+        assert sum(tk.launch_counts().values()) == 0  # CPU: plain versions
 
 
 def test_server_refuses_what_is_not_ported():

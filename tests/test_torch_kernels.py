@@ -7,9 +7,10 @@ held against ``repro.kernels.ops.*(..., use_kernel=True)`` -- the Pallas
 kernel in interpret mode, as ``tests/test_kernel_conformance.py`` runs it
 -- and against ``repro.kernels.ref``, on the same numpy inputs.
 
-Tolerances: gathers match exactly; f32 within rtol = atol = 1e-5; bf16
-within 1e-2 (the two sides round bf16 at other places).  A CPU call must
-launch no kernel: every ``launches`` count stays 0.
+Tolerances: gathers match exactly (robe, qrobe, and qr in f32); f32
+within rtol = atol = 1e-5; bf16 within 1e-2 (the two sides round bf16 at
+other places).  A CPU call must launch no kernel: every ``launches`` count
+stays 0.
 """
 
 import jax.numpy as jnp
@@ -20,9 +21,13 @@ import torch
 from repro.core.robe import RobeSpec as JRobeSpec
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.nn.embedding_backends.hashed import qr_layout
+from repro.nn.embedding_backends.qrobe import GROUP_LOG2
+from repro.nn.embedding_backends.tt import factor_dim, factor_rows
 from repro_torch import kernels as tk
 from repro_torch.core.robe import RobeSpec as TRobeSpec
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -34,8 +39,9 @@ def _no_launches():
     """Every test here runs on the CPU: no kernel may be launched."""
     tk.reset_launches()
     yield
-    assert tk.launch_counts() == {"robe_lookup": 0, "dot_interaction": 0,
-                                  "serve_fused": 0}
+    counts = tk.launch_counts()
+    assert len(counts) == len(tk.CUDA_KERNELS)
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def _specs(z: int, use_sign: bool, size: int = 4096):
@@ -188,6 +194,141 @@ def test_serve_fused_rounds_pooled_once_to_bot_dtype():
 
 
 # ---------------------------------------------------------------------------
+# the compressed substrates' lookups, on the conformance harness's cases
+# (tests/test_kernel_conformance.py): VOCABS, QR_M, TT_RANK, dim 24
+# ---------------------------------------------------------------------------
+
+VOCABS = (40, 24, 64)
+QR_M = 8
+TT_RANK = 4
+
+
+def _ids(b: int, vocabs, seed: int) -> np.ndarray:
+    """[b, F] ids per field, the last sample at each field's largest id."""
+    rs = np.random.RandomState(seed)
+    idx = np.stack([rs.randint(0, v, b) for v in vocabs], axis=1)
+    idx[-1] = np.asarray(vocabs) - 1
+    return idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("b,dim,z", [
+    (16, 24, 16),         # the harness's case: general layout (Z < d)
+    (13, 24, 16),         # prime batch
+    (16, 8, 8),           # aligned layout (Z % d == 0), test_qrobe's case
+    (11, 128, 32),        # the full model's regime
+])
+@pytest.mark.parametrize("use_sign", (False, True))
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_qrobe_lookup_matches_pallas_and_ref(b, dim, z, use_sign, dt):
+    """int8 codes, per-group scales in ``dt``: exactly equal, the group
+    taken from the wrapped slot (|M| = 4000 leaves a partial last group)."""
+    size, f = 4000, len(VOCABS)
+    kw = dict(size=size, block_size=z, seed=7, use_sign=use_sign)
+    js, ts = JRobeSpec(**kw), TRobeSpec(**kw)
+    rs = np.random.RandomState(b + dim)
+    codes = rs.randint(-127, 128, size).astype(np.int8)
+    n_grp = -(-size // (1 << GROUP_LOG2))
+    scale = (np.abs(rs.randn(n_grp)) * 0.05 + 0.01).astype(np.float32)
+    rows = _ids(b, VOCABS, seed=b)
+    rows[0] = [2 ** 31 - 1, 2 ** 31 - 2, 2 ** 30]     # x*d past 2^32
+    tids = tuple(range(f))
+    got = tops.qrobe_lookup(_t(codes), _t(scale, dt), _t(rows), tids, dim,
+                            ts, GROUP_LOG2)
+    assert got.shape == (b, f, dim) and got.dtype == TDT[dt]
+    jc, jsc = jnp.asarray(codes), jnp.asarray(scale, JDT[dt])
+    kernel = jops.qrobe_lookup(jc, jsc, jnp.asarray(rows), tids, dim, js,
+                               GROUP_LOG2, True)
+    ref = jref.qrobe_lookup_ref(jc, jsc, jnp.asarray(rows),
+                                jnp.arange(f, dtype=jnp.uint32), dim, js,
+                                GROUP_LOG2)
+    np.testing.assert_array_equal(_np(got), _np(kernel))
+    np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+def test_qrobe_dequant_ref_matches_jax():
+    rs = np.random.RandomState(3)
+    codes = rs.randint(-127, 128, 1000).astype(np.int8)
+    scale = rs.rand(4).astype(np.float32)
+    got = tref.qrobe_dequant_ref(_t(codes), _t(scale), GROUP_LOG2)
+    want = jref.qrobe_dequant_ref(jnp.asarray(codes), jnp.asarray(scale),
+                                  GROUP_LOG2)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("b,dim,m", [
+    (16, 24, QR_M),       # the harness's case
+    (13, 24, QR_M),       # prime batch
+    (16, 24, 7),          # m not a power of two
+    (11, 128, 16),        # the full model's width
+])
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_qr_lookup_matches_pallas_and_ref(b, dim, m, dt):
+    f = len(VOCABS)
+    q_rows, q_off, r_off = qr_layout(VOCABS, m)
+    qo, ro = tuple(map(int, q_off)), tuple(map(int, r_off))
+    rs = np.random.RandomState(b + m)
+    q = rs.randn(sum(q_rows), dim).astype(np.float32)
+    r = rs.randn(m * f, dim).astype(np.float32)
+    idx = _ids(b, VOCABS, seed=m)
+    got = tops.qr_lookup(_t(q, dt), _t(r, dt), _t(idx), qo, ro, m)
+    assert got.shape == (b, f, dim) and got.dtype == TDT[dt]
+    jq, jr = jnp.asarray(q, JDT[dt]), jnp.asarray(r, JDT[dt])
+    kernel = jops.qr_lookup(jq, jr, jnp.asarray(idx), qo, ro, m, True)
+    ref = jref.qr_lookup_ref(jq, jr, jnp.asarray(idx), qo, ro, m)
+    if dt == "f32":       # one f32 product: exactly equal
+        np.testing.assert_array_equal(_np(got), _np(kernel))
+        np.testing.assert_array_equal(_np(got), _np(ref))
+    else:
+        _close(got, kernel, dt)
+        _close(got, ref, dt)
+
+
+@pytest.mark.parametrize("b,dim,rank", [
+    (16, 24, TT_RANK),    # the harness's case: (d1, d2, d3) = (2, 3, 4)
+    (13, 24, TT_RANK),    # prime batch
+    (16, 16, 8),          # dim 16 at the backend's default rank 8
+])
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_tt_lookup_matches_pallas_and_ref(b, dim, rank, dt):
+    f = len(VOCABS)
+    factors = factor_rows(sum(VOCABS))
+    n1, n2, n3 = factors
+    d1, d2, d3 = factor_dim(dim)
+    offsets = tuple(int(o) for o in
+                    np.concatenate([[0], np.cumsum(VOCABS)[:-1]]))
+    rs = np.random.RandomState(b + dim + rank)
+    cores = (rs.randn(n1, d1, rank).astype(np.float32),
+             rs.randn(n2, rank, d2, rank).astype(np.float32),
+             rs.randn(n3, rank, d3).astype(np.float32))
+    idx = _ids(b, VOCABS, seed=dim)
+    got = tops.tt_lookup(*(_t(c, dt) for c in cores), _t(idx), offsets,
+                         factors, dim)
+    assert got.shape == (b, f, dim) and got.dtype == TDT[dt]
+    jc = [jnp.asarray(c, JDT[dt]) for c in cores]
+    kernel = jops.tt_lookup(*jc, jnp.asarray(idx), offsets, factors, dim,
+                            True)
+    ref = jref.tt_lookup_ref(*jc, jnp.asarray(idx), offsets, factors, dim)
+    _close(got, kernel, dt)
+    _close(got, ref, dt)
+
+
+def test_index_helpers_match_jax():
+    idx = _ids(9, VOCABS, seed=4)
+    for m in (QR_M, 7):
+        q_rows, q_off, r_off = qr_layout(VOCABS, m)
+        got = tref.qr_indices(_t(idx), q_off, r_off, m)
+        want = jref.qr_indices(jnp.asarray(idx), q_off, r_off, m)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
+    factors = factor_rows(sum(VOCABS))
+    offsets = np.concatenate([[0], np.cumsum(VOCABS)[:-1]])
+    got = tref.tt_indices(_t(idx), offsets, factors)
+    want = jref.tt_indices(jnp.asarray(idx), offsets, factors)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain path, other devices raise, and the
 # forward-only ops refuse a backward
 # ---------------------------------------------------------------------------
@@ -224,6 +365,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tk.dot_interaction_cuda(torch.randn(2, 3, 4))
     with pytest.raises(ValueError, match="CUDA"):
         tk.serve_fused_cuda(mem, rows, torch.randn(3, 16), (0, 1), 16, ts)
+    codes = torch.zeros(4096, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.qrobe_lookup_cuda(codes, torch.ones(16), rows, (0, 1), 16, ts,
+                             GROUP_LOG2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.qr_lookup_cuda(torch.randn(5, 8), torch.randn(8, 8), rows, (0, 3),
+                          (0, 4), 4)
+    cores = (torch.randn(4, 2, 3), torch.randn(4, 3, 2, 3),
+             torch.randn(4, 3, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.tt_lookup_cuda(*cores, rows, (0, 10), (4, 4, 4), 8)
 
 
 def test_kernel_sources_and_bindings_agree():
@@ -232,6 +384,10 @@ def test_kernel_sources_and_bindings_agree():
     import re
     from repro_torch.kernels import _build
     text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    # one launcher per kernel wrapper, named after it
+    assert set(_build.SIGNATURES) == {
+        k.__name__.removesuffix("_cuda") + "_launch"
+        for k in tk.CUDA_KERNELS}
     for name, argtypes in _build.SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
         assert m, name
