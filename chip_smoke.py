@@ -16,7 +16,11 @@ non-zero on failure:
    (2, 8, 8), rank 8): ``robe_lookup`` and ``qrobe_lookup`` exactly
    (torch.equal), ``qr_lookup`` exactly in f32 and within 1e-2 in bf16,
    ``dot_interaction``, ``serve_fused`` and ``tt_lookup`` within
-   rtol = atol = 1e-5 in f32 and 1e-2 in bf16;
+   rtol = atol = 1e-5 in f32 and 1e-2 in bf16; ``dot_interaction`` also
+   at the ragged shapes of its register tiling (F in 1..64, D in 1..130,
+   B in 1..4099, with and without the diagonal) and ``serve_fused`` in the
+   hash's general regime (Z = 16 with d = 24 and 40, bags of 3 with -1
+   pads and an empty bag);
 3. the main paths at full width, each answering four padded batches of
    512 requests (one with n_valid < 512) with every kernel's launch count
    set to 0 before the path and read after it:
@@ -80,6 +84,10 @@ B_P99, B_BULK = 512, 262144           # RECSYS_SHAPES serve_p99 / serve_bulk
 SUBSTRATES = {"qrobe": "qrobe_lookup", "hashed": "qr_lookup",
               "tt": "tt_lookup"}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: the ragged dot_interaction shapes phase 2 checks beside full width
+DI_ROWS = (1, 2, 4, 5, 8, 9, 28, 33, 64)
+DI_WIDTHS = (1, 3, 24, 40, 130)
+DI_BATCHES = (1, 31, 33, 509, 4099)
 SCORE_TOL = 1e-4
 REPS = 21
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
@@ -146,6 +154,8 @@ def random_rows(gen, shape, dev) -> torch.Tensor:
 
 
 def max_err(got, want) -> float:
+    if got.numel() == 0:
+        return 0.0
     return float((got.float() - want.float()).abs().max())
 
 
@@ -193,10 +203,17 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
         record("robe_lookup", got, want)
     torch.cuda.synchronize()
 
-    for b in (B_P99, 509):
+    # full width, then the ragged shapes of the register tiling: F rows not
+    # a multiple of four, D not a multiple of four, batches of one, primes;
+    # last, rows that leave the output stage only a window of shared memory
+    # (inputs scaled down so that 2,148-long f32 sums stay within 1e-5)
+    di_cases = [(b, F + 1, D, 1.0) for b in (B_P99, 509)] + [
+        (b, f, d, 1.0) for f in DI_ROWS for d in DI_WIDTHS
+        for b in DI_BATCHES] + [(3, F + 1, 2148, 0.125)]
+    for b, f, d, scale in di_cases:
         for dtype in (torch.float32, torch.bfloat16):
-            feats = torch.randn((b, F + 1, D), generator=gen, device=dev
-                                ).to(dtype)
+            feats = (scale * torch.randn((b, f, d), generator=gen,
+                                         device=dev)).to(dtype)
             for self_int in (False, True):
                 got = dot_interaction_cuda(feats, self_int)
                 want = dot_interaction_ref(feats, self_int)
@@ -204,29 +221,36 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
                 require(got.shape == want.shape and got.dtype == dtype
                         and torch.allclose(got.float(), want.float(),
                                            rtol=tol, atol=tol),
-                        f"dot_interaction B={b} {dtype} self={self_int}: "
-                        f"max err {max_err(got, want)}")
+                        f"dot_interaction B={b} F={f} D={d} {dtype} "
+                        f"self={self_int}: max err {max_err(got, want)}")
                 record("dot_interaction", got, want)
     torch.cuda.synchronize()
 
-    sp = dataclasses.replace(spec, use_sign=True)
-    bag3 = random_rows(gen, (509, F, 3), dev)
-    pad = torch.rand((509, F, 3), generator=gen, device=dev) < 0.3
-    bag3 = torch.where(pad, torch.full_like(bag3, -1), bag3)
-    bag3[0, 0, :] = -1                                      # an empty bag
-    for idx in (rows, bag3.contiguous()):
+    # full width, then the hash's general regime (Z = 16 < d, d not a
+    # multiple of Z's span of a warp); bags of 3 with -1 pads and an empty bag
+    sf_cases = [(rows, D, spec)]
+    for dim, z in ((D, 32), (24, 16), (40, 16)):
+        bag3 = random_rows(gen, (509, F, 3), dev)
+        pad = torch.rand((509, F, 3), generator=gen, device=dev) < 0.3
+        bag3 = torch.where(pad, torch.full_like(bag3, -1), bag3)
+        bag3[0, 0, :] = -1                                  # an empty bag
+        sf_cases.append((bag3.contiguous(), dim,
+                         dataclasses.replace(spec, block_size=z)))
+    for idx, dim, base in sf_cases:
         b = idx.shape[0]
         for dtype in (torch.float32, torch.bfloat16):
-            bot = torch.randn((b, D), generator=gen, device=dev).to(dtype)
-            for s in (spec, sp):
-                got = serve_fused_cuda(memory, idx, bot, tids, D, s)
-                want = serve_fused_ref(memory, idx, bot, tids, D, s)
+            bot = torch.randn((b, dim), generator=gen, device=dev).to(dtype)
+            for sign in (False, True):
+                s = dataclasses.replace(base, use_sign=sign)
+                got = serve_fused_cuda(memory, idx, bot, tids, dim, s)
+                want = serve_fused_ref(memory, idx, bot, tids, dim, s)
                 tol = TOL[dtype]
                 require(got.shape == want.shape and got.dtype == dtype
                         and torch.allclose(got.float(), want.float(),
                                            rtol=tol, atol=tol),
-                        f"serve_fused idx={tuple(idx.shape)} {dtype} "
-                        f"sign={s.use_sign}: max err {max_err(got, want)}")
+                        f"serve_fused idx={tuple(idx.shape)} d={dim} "
+                        f"Z={s.block_size} {dtype} sign={sign}: max err "
+                        f"{max_err(got, want)}")
                 record("serve_fused", got, want)
     torch.cuda.synchronize()
 

@@ -144,17 +144,30 @@ def dtype_code(t: torch.Tensor) -> int:
                         f"{t.dtype}") from None
 
 
+def fastmod_const(m: int) -> int:
+    """Lemire's fastmod constant ceil(2^64 / m) mod 2^64 for a divisor
+    1 <= m < 2^32: the kernels take ``r % m`` as ``((c * r) mod 2^64) * m
+    >> 64``, exact for every 32-bit ``r``."""
+    if not 1 <= m < 2 ** 32:
+        raise ValueError(f"fastmod needs 1 <= m < 2^32, got {m}")
+    return ((2 ** 64 - 1) // m + 1) % 2 ** 64
+
+
 @functools.lru_cache(maxsize=64)
 def hash_args(spec, tids: tuple) -> tuple:
-    """ctypes arrays of the slot and sign hash coefficients (12 uint64) and
-    the per-field table ids (uint32) for a launcher; cached, since drawing
-    the coefficients costs more than a launch.  The arrays are only read."""
+    """ctypes arrays of the slot and sign hash coefficients -- (a_t, a2,
+    a1, a0, b, m, fastmod_const(m)) of each, 14 uint64 -- and the per-field
+    table ids (uint32) for a launcher; cached, since drawing the
+    coefficients costs more than a launch.  The arrays are only read."""
     if not 0 < len(tids) <= MAX_FIELDS or min(tids) < 0 or \
             max(tids) >= 2 ** 31:
         raise ValueError(f"need 1..{MAX_FIELDS} table ids in [0, 2^31), "
                          f"got {len(tids)}")
-    coeffs = spec.hash_fn().coefficients() + spec.sign_fn().coefficients()
-    return ((ctypes.c_uint64 * 12)(*coeffs),
+    coeffs = []
+    for h in (spec.hash_fn(), spec.sign_fn()):
+        c = h.coefficients()
+        coeffs += [*c, fastmod_const(c[-1])]
+    return ((ctypes.c_uint64 * len(coeffs))(*coeffs),
             (ctypes.c_uint32 * len(tids))(*tids))
 
 

@@ -1,18 +1,25 @@
-// Shared device code of the serve-path kernels: the ROBE slot and sign hash
-// and the gram-triangle epilogue.  Header only; every .cu file that
-// includes it compiles its own copy (no relocatable device code needed).
+// Shared device code of the serve-path kernels: the ROBE slot and sign
+// hash, dtype conversions and the shared-memory opt-in.  Header only; every
+// .cu file that includes it compiles its own copy (no relocatable device
+// code needed).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define ROBE_M31 0x7FFFFFFFULL
+#define ROBE_M31 0x7FFFFFFFU
 #define ROBE_MAX_FIELDS 128
+#define ROBE_HASH_COEFFS 7
 
 // One member of the 2-universal family of repro_torch/core/hashing.py.
+// Every coefficient is below 2^31, so each coefficient x digit product is
+// one 32 x 32 -> 64-bit multiply.  `fm` = ceil(2^64 / m) (mod 2^64) turns
+// the final `% m` into two multiplies (Lemire's fastmod, exact for every
+// 32-bit input and every m >= 1); the host computes it
+// (kernels/_build.py, fastmod_const).
 struct UHash {
-  unsigned long long a_t, a2, a1, a0, b;
-  unsigned int m;
+  unsigned int a_t, a2, a1, a0, b, m;
+  unsigned long long fm;
 };
 
 // Everything a kernel needs to hash (table id, row, element) to a slot.
@@ -20,7 +27,7 @@ struct UHash {
 // copies nothing to the card.
 struct RobeParams {
   UHash h;                // slot hash into [0, |M|); h.m == |M|
-  UHash g;                // sign hash into {0, 1}
+  UHash g;                // sign hash into {0, 1}: g.m is a power of two
   int log2_z;             // block size Z = 2^log2_z
   int use_sign;
   int dim;                // embedding width d
@@ -28,7 +35,8 @@ struct RobeParams {
   unsigned int tids[ROBE_MAX_FIELDS];
 };
 
-// coeffs: (a_t, a2, a1, a0, b, m) of the slot hash, then of the sign hash.
+// coeffs: (a_t, a2, a1, a0, b, m, fm) of the slot hash, then of the sign
+// hash.
 static inline int robe_make_params(RobeParams* p,
                                    const unsigned long long* coeffs,
                                    const unsigned int* tids, int n_fields,
@@ -38,9 +46,15 @@ static inline int robe_make_params(RobeParams* p,
     return (int)cudaErrorInvalidValue;
   UHash* hs[2] = {&p->h, &p->g};
   for (int k = 0; k < 2; ++k) {
-    const unsigned long long* c = coeffs + 6 * k;
-    *hs[k] = UHash{c[0], c[1], c[2], c[3], c[4], (unsigned int)c[5]};
+    const unsigned long long* c = coeffs + ROBE_HASH_COEFFS * k;
+    for (int i = 0; i < 6; ++i)
+      if (c[i] > ROBE_M31 || (i == 5 && c[i] == 0))
+        return (int)cudaErrorInvalidValue;
+    *hs[k] = UHash{(unsigned int)c[0], (unsigned int)c[1], (unsigned int)c[2],
+                   (unsigned int)c[3], (unsigned int)c[4], (unsigned int)c[5],
+                   c[6]};
   }
+  if (p->g.m & (p->g.m - 1)) return (int)cudaErrorInvalidValue;
   p->log2_z = log2_z;
   p->use_sign = use_sign;
   p->dim = dim;
@@ -49,37 +63,68 @@ static inline int robe_make_params(RobeParams* p,
   return 0;
 }
 
-// h(t, key) = ((a_t t + a2 k2 + a1 k1 + a0 k0 + b) mod (2^31-1)) mod m over
-// the 31-bit digits of the 64-bit key.  Each product is below 2^62 and the
-// sum stays below 2^64 for table ids below 2^31, so the unsigned sum is
-// exact; two folds with 2^31 = 1 (mod 2^31-1) reduce it.
-__device__ __forceinline__ unsigned int robe_uhash(const UHash& p,
-                                                   unsigned long long t,
-                                                   unsigned long long key) {
-  unsigned long long acc = p.b + p.a_t * t + p.a2 * (key >> 62) +
-                           p.a1 * ((key >> 31) & ROBE_M31) +
-                           p.a0 * (key & ROBE_M31);
+// (a_t t + a2 k2 + a1 k1 + a0 k0 + b) mod (2^31-1) over the 31-bit digits
+// of the 64-bit key.  Each product is below 2^62 (k2 < 4) and the sum stays
+// below 2^64 for table ids below 2^31, so the unsigned sum is exact; two
+// folds with 2^31 = 1 (mod 2^31-1) reduce it.
+__device__ __forceinline__ unsigned int robe_uhash_m31(
+    const UHash& p, unsigned int t, unsigned long long key) {
+  const unsigned int k2 = (unsigned int)(key >> 62),
+                     k1 = (unsigned int)(key >> 31) & ROBE_M31,
+                     k0 = (unsigned int)key & ROBE_M31;
+  unsigned long long acc = (unsigned long long)p.b +
+                           (unsigned long long)p.a_t * t +
+                           (unsigned long long)p.a2 * k2 +
+                           (unsigned long long)p.a1 * k1 +
+                           (unsigned long long)p.a0 * k0;
   acc = (acc & ROBE_M31) + (acc >> 31);
   acc = (acc & ROBE_M31) + (acc >> 31);
   unsigned int r = (unsigned int)acc;
-  if (r >= (unsigned int)ROBE_M31) r -= (unsigned int)ROBE_M31;
-  return r % p.m;
+  return r >= ROBE_M31 ? r - ROBE_M31 : r;
 }
 
-// Slot of element index k = x*d + i of table t: hash of the block id plus
-// the offset inside the block, wrapped once around the circular array.
-__device__ __forceinline__ unsigned int robe_slot(const RobeParams& p,
-                                                  unsigned int t,
-                                                  unsigned long long k) {
-  unsigned int slot = robe_uhash(p.h, t, k >> p.log2_z) +
-                      (unsigned int)(k & ((1ULL << p.log2_z) - 1ULL));
+// r mod m as ((fm * r mod 2^64) * m) >> 64, the high half taken from a
+// 64 x 32-bit product: three integer multiplies, no division.
+__device__ __forceinline__ unsigned int robe_fastmod(unsigned int r,
+                                                     unsigned long long fm,
+                                                     unsigned int m) {
+  const unsigned long long low = fm * r;
+  const unsigned long long hi =
+      (unsigned long long)(unsigned int)(low >> 32) * m +
+      __umulhi((unsigned int)low, m);
+  return (unsigned int)(hi >> 32);
+}
+
+// h(t, key) = ((a_t t + a2 k2 + a1 k1 + a0 k0 + b) mod (2^31-1)) mod m.
+__device__ __forceinline__ unsigned int robe_uhash(const UHash& p,
+                                                   unsigned int t,
+                                                   unsigned long long key) {
+  return robe_fastmod(robe_uhash_m31(p, t, key), p.fm, p.m);
+}
+
+// Slot of the element at offset `off` inside a block whose slot hash is
+// `hb`: the offset added, wrapped once around the circular array.
+__device__ __forceinline__ unsigned int robe_slot_in(const RobeParams& p,
+                                                     unsigned int hb,
+                                                     unsigned int off) {
+  const unsigned int slot = hb + off;
   return slot >= p.h.m ? slot - p.h.m : slot;
 }
 
+// Slot of element index k = x*d + i of table t.
+__device__ __forceinline__ unsigned int robe_slot(const RobeParams& p,
+                                                  unsigned int t,
+                                                  unsigned long long k) {
+  return robe_slot_in(
+      p, robe_uhash(p.h, t, k >> p.log2_z),
+      (unsigned int)(k & ((1ULL << p.log2_z) - 1ULL)));
+}
+
+// The sign hash's m is a power of two (2), so its `% m` is a mask.
 __device__ __forceinline__ float robe_sign(const RobeParams& p,
                                           unsigned int t,
                                           unsigned long long k) {
-  return robe_uhash(p.g, t, k) ? -1.f : 1.f;
+  return (robe_uhash_m31(p.g, t, k) & (p.g.m - 1)) ? -1.f : 1.f;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -97,54 +142,23 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Shared-memory row stride (floats) for rows of width `dim`: a multiple of
-// four for float4 reads, plus four so that rows start in different banks.
-__host__ __device__ __forceinline__ int gram_width4(int dim) {
-  return (dim + 3) & ~3;
+// Asynchronous copies from global to shared memory (sm_80+).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
 }
-__host__ __device__ __forceinline__ int gram_ld(int dim) {
-  return gram_width4(dim) + 4;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
 }
-__host__ __device__ __forceinline__ int gram_pairs(int n, int self) {
-  return self ? n * (n + 1) / 2 : n * (n - 1) / 2;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
-
-// Pair p of the strict lower triangle, in np.tril_indices(k=-1) order:
-// (1,0), (2,0), (2,1), (3,0), ...
-__device__ __forceinline__ void tril_decode(int p, int* i, int* j) {
-  int r = (int)((1.f + sqrtf(1.f + 8.f * (float)p)) * 0.5f);
-  while (r * (r - 1) / 2 > p) --r;
-  while (r * (r + 1) / 2 <= p) ++r;
-  *i = r;
-  *j = p - r * (r - 1) / 2;
-}
-
-// out[p] = <row i, row j> for every pair p of the triangle of the n rows in
-// shared memory `s` (stride gram_ld(dim), zero beyond dim), accumulated in
-// f32 and rounded once to TO.  With `self` the diagonal is included: pair p
-// of the strict triangle of n+1 rows, shifted up one row, is pair p of
-// np.tril_indices(n, k=0).
-template <typename TO>
-__device__ __forceinline__ void gram_tril(const float* s, int n, int dim,
-                                          int self, TO* __restrict__ out) {
-  const int ld = gram_ld(dim), w4 = gram_width4(dim) / 4;
-  const int n_pairs = gram_pairs(n, self);
-  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
-    int i, j;
-    tril_decode(p, &i, &j);
-    i -= self;
-    const float4* a = reinterpret_cast<const float4*>(s + i * ld);
-    const float4* b = reinterpret_cast<const float4*>(s + j * ld);
-    float acc = 0.f;
-    for (int k = 0; k < w4; ++k) {
-      float4 x = a[k], y = b[k];
-      acc = fmaf(x.x, y.x, acc);
-      acc = fmaf(x.y, y.y, acc);
-      acc = fmaf(x.z, y.z, acc);
-      acc = fmaf(x.w, y.w, acc);
-    }
-    out[p] = from_f32<TO>(acc);
-  }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory when needed.
@@ -154,4 +168,24 @@ static inline cudaError_t robe_set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// The grid of a kernel whose blocks walk the batch (blockIdx.x, +
+// gridDim.x, ...): as many blocks of `threads` threads and `smem` bytes as
+// the card holds at once, and no more than `batch`.
+template <typename K>
+static inline cudaError_t robe_resident_grid(K kernel, int threads,
+                                             size_t smem, int batch,
+                                             int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return err;
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  *grid = (int)(batch < resident ? batch : resident);
+  return cudaSuccess;
 }

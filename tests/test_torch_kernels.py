@@ -114,7 +114,9 @@ def test_robe_lookup_field_subset_uses_given_table_ids():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("b,f,d", [(16, 3, 24), (13, 27, 128), (7, 5, 40),
-                                   (1, 2, 1)])
+                                   (1, 2, 1),
+                                   # ragged edges of the 4x4 register tiles
+                                   (5, 9, 3), (3, 33, 130)])
 @pytest.mark.parametrize("self_interaction", (False, True))
 @pytest.mark.parametrize("dt", ("f32", "bf16"))
 def test_dot_interaction_matches_pallas_and_ref(b, f, d, self_interaction,
@@ -162,6 +164,8 @@ def _serve_inputs(b, f, bag, dim, seed):
     (7, 3, 0, 40, 16),    # d not a multiple of 128
     (6, 4, 3, 24, 16),    # bag > 1 with -1 pads and an empty bag
     (5, 3, 2, 128, 32),   # the full model's regime, bags
+    (6, 5, 3, 40, 16),    # Z=16 < d=40: rows span three or four blocks
+    (3, 9, 2, 130, 32),   # d past 128: the kernel hashes in two chunks
 ])
 @pytest.mark.parametrize("dt", ("f32", "bf16"))
 def test_serve_fused_matches_pallas_and_ref(b, f, bag, dim, z, dt):
@@ -326,6 +330,42 @@ def test_index_helpers_match_jax():
     want = jref.tt_indices(jnp.asarray(idx), offsets, factors)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' `% m` without a division: Lemire's fastmod constant
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [
+    26_135_627,           # |M| of dlrm-criteo-tb at 1000x
+    4096, 4000,           # the test and smoke sizes
+    2,                    # the sign hash
+    1,
+    2 ** 31 - 2, 2 ** 31 - 1,
+])
+def test_fastmod_constant_matches_python_mod(m):
+    """((c * r) mod 2^64) * m >> 64 == r % m for the constant the launchers
+    receive, at the edges of the M31 residues the hash reduces."""
+    from repro_torch.kernels import _build
+    c = _build.fastmod_const(m)
+    assert 0 <= c < 2 ** 64
+    rs_vals = [int(v) for v in
+               np.random.RandomState(m % 2 ** 32).randint(0, 2 ** 31 - 1, 64)]
+    for r in [0, 1, m - 1, m, m + 1, 2 ** 31 - 2, 2 ** 32 - 1] + rs_vals:
+        assert (((c * r) % 2 ** 64) * m) >> 64 == r % m, (m, r)
+
+
+def test_hash_args_carry_fastmod_constants():
+    from repro_torch.kernels import _build
+    _, ts = _specs(16, True, size=26_135_627)
+    coeffs, tids = _build.hash_args(ts, (0, 3))
+    vals = list(coeffs)
+    assert len(vals) == 14 and list(tids) == [0, 3]
+    for h, part in ((ts.hash_fn(), vals[:7]), (ts.sign_fn(), vals[7:])):
+        assert tuple(part[:6]) == h.coefficients()
+        assert part[6] == _build.fastmod_const(h.m)
+    with pytest.raises(ValueError):
+        _build.fastmod_const(0)
 
 
 # ---------------------------------------------------------------------------
