@@ -16,7 +16,12 @@ non-zero on failure:
    (2, 8, 8), rank 8): ``robe_lookup`` and ``qrobe_lookup`` exactly
    (torch.equal), ``qr_lookup`` exactly in f32 and within 1e-2 in bf16,
    ``dot_interaction``, ``serve_fused`` and ``tt_lookup`` within
-   rtol = atol = 1e-5 in f32 and 1e-2 in bf16; ``dot_interaction`` also
+   rtol = atol = 1e-5 in f32 and 1e-2 in bf16; ``robe_lookup`` in every
+   regime of its block hash (``ROBE_REGIMES``), f32 and bf16, the sign on
+   and off, B in 1, 509, 512, with a row of 2^31 - 1; ``tt_lookup`` at
+   full width, with cores off 16-byte alignment, and at ``TT_SHAPES``
+   (ranks 4 and 8, d3 = 3, d1 = 1, and rank 3, which has no instance),
+   f32 and bf16, B in 1, 509, 512; ``dot_interaction`` also
    at the ragged shapes of its register tiling (F in 1..64, D in 1..130,
    B in 1..4099, with and without the diagonal) and ``serve_fused`` in the
    hash's general regime (Z = 16 with d = 24 and 40, bags of 3 with -1
@@ -43,6 +48,7 @@ non-zero on failure:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -88,6 +94,14 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 DI_ROWS = (1, 2, 4, 5, 8, 9, 28, 33, 64)
 DI_WIDTHS = (1, 3, 24, 40, 130)
 DI_BATCHES = (1, 31, 33, 509, 4099)
+#: robe_lookup's phase-2 regimes (d, Z): Z < d with d not a multiple of Z,
+#: Z = d, Z > d (rows share blocks), Z = 1, and full width
+ROBE_REGIMES = ((24, 16), (16, 16), (8, 32), (40, 1), (D, 32))
+#: tt_lookup's narrow phase-2 shapes (dim, rank): (2, 3, 4) at rank 4,
+#: (2, 3, 3) with d3 not a multiple of four, (1, 4, 4) with d1 = 1, and
+#: rank 3, which has no instance of its own
+TT_SHAPES = ((24, 4), (18, 8), (16, 8), (24, 3))
+PHASE2_BATCHES = (1, 509, 512)
 SCORE_TOL = 1e-4
 REPS = 21
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
@@ -185,23 +199,25 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
     tids = tuple(range(F))
     rows = random_rows(gen, (B_P99, F), dev)
 
-    # robe_lookup: a gather and a ±1 multiply, so exactly equal
-    cases = [(b, dataclasses.replace(spec, use_sign=s), memory, D)
-             for b in (B_P99, 509) for s in (False, True)]
-    cases.append((509, dataclasses.replace(spec, use_sign=True),
-                  memory.to(torch.bfloat16), D))
-    aligned = RobeSpec(size=spec.size, block_size=16, seed=spec.seed,
-                       use_sign=True)                      # Z = d = 16
-    cases.append((509, aligned, memory, 16))
-    for b, sp, mem, dim in cases:
-        got = robe_lookup_cuda(mem, rows[:b], tids, dim, sp)
-        want = robe_lookup_ref(mem, rows[:b], tids, dim, sp)
+    # robe_lookup: a gather and a ±1 multiply, so exactly equal, in every
+    # regime of the block hash (ROBE_REGIMES), both dtypes, the sign on and
+    # off, on rows that include 2^31 - 1 (x*d past 2^32)
+    robe_rows = rows.clone()
+    robe_rows[0, 0] = 2 ** 31 - 1
+    mems = {torch.float32: memory, torch.bfloat16: memory.to(torch.bfloat16)}
+    for (dim, z), (dt, mem), sign, b in itertools.product(
+            ROBE_REGIMES, mems.items(), (False, True), PHASE2_BATCHES):
+        sp = dataclasses.replace(spec, block_size=z, use_sign=sign)
+        got = robe_lookup_cuda(mem, robe_rows[:b], tids, dim, sp)
+        want = robe_lookup_ref(mem, robe_rows[:b], tids, dim, sp)
         require(torch.equal(got, want),
-                f"robe_lookup B={b} Z={sp.block_size} d={dim} "
-                f"sign={sp.use_sign} {mem.dtype}: max err "
+                f"robe_lookup B={b} Z={z} d={dim} sign={sign} {dt}: max err "
                 f"{max_err(got, want)}")
         record("robe_lookup", got, want)
+    del mems
     torch.cuda.synchronize()
+    aligned = RobeSpec(size=spec.size, block_size=16, seed=spec.seed,
+                       use_sign=True)                      # Z = d = 16
 
     # full width, then the ragged shapes of the register tiling: F rows not
     # a multiple of four, D not a multiple of four, batches of one, primes;
@@ -291,26 +307,34 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
             record("qr_lookup", got, want)
     torch.cuda.synchronize()
 
-    # tt_lookup: the full-width cores, and rank 4 at dim 24 = 2*3*4
+    # tt_lookup: the full-width cores (the rank-8 instance), the same cores
+    # off 16-byte alignment (the any-rank path), then narrow cores over the
+    # full-width rows at each (dim, rank) of TT_SHAPES
     tp = subs.params("tt")["embedding"]
     offsets, factors = tt_args(subs)
     n1, n2, n3 = factors
-    d1, d2, d3 = factor_dim(24)
-    narrow = [torch.randn(shape, generator=gen, device=dev) for shape in
-              ((n1, d1, 4), (n2, 4, d2, 4), (n3, 4, d3))]
     wide = [tp["core0"], tp["core1"], tp["core2"]]
-    for b, cores, dim in ((B_P99, wide, D), (509, wide, D), (509, narrow, 24)):
-        for dtype in (torch.float32, torch.bfloat16):
-            c = [x.to(dtype) for x in cores]
-            got = tt_lookup_cuda(*c, rows[:b], offsets, factors, dim)
-            want = tt_lookup_ref(*c, rows[:b], offsets, factors, dim)
-            tol = TOL[dtype]
-            require(got.shape == (b, F, dim) and got.dtype == dtype
-                    and torch.allclose(got.float(), want.float(), rtol=tol,
-                                       atol=tol),
-                    f"tt_lookup B={b} d={dim} {dtype}: max err "
-                    f"{max_err(got, want)}")
-            record("tt_lookup", got, want)
+    tt_cases = [("full width", wide, D), ("unaligned", wide, D)]
+    for dim, rank in TT_SHAPES:
+        d1, d2, d3 = factor_dim(dim)
+        tt_cases.append((f"rank {rank}", [
+            torch.randn(shape, generator=gen, device=dev) for shape in
+            ((n1, d1, rank), (n2, rank, d2, rank), (n3, rank, d3))], dim))
+    for (what, cores, dim), dtype, b in itertools.product(
+            tt_cases, (torch.float32, torch.bfloat16), PHASE2_BATCHES):
+        c = [x.to(dtype) for x in cores]
+        if what == "unaligned":   # one element past an aligned start
+            c = [torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:]
+                 .view(x.shape).copy_(x) for x in c]
+        got = tt_lookup_cuda(*c, rows[:b], offsets, factors, dim)
+        want = tt_lookup_ref(*c, rows[:b], offsets, factors, dim)
+        tol = TOL[dtype]
+        require(got.shape == (b, F, dim) and got.dtype == dtype
+                and torch.allclose(got.float(), want.float(), rtol=tol,
+                                   atol=tol),
+                f"tt_lookup {what} B={b} d={dim} {dtype}: max err "
+                f"{max_err(got, want)}")
+        record("tt_lookup", got, want)
     torch.cuda.synchronize()
 
     # an empty batch gives an empty output and launches nothing

@@ -49,7 +49,7 @@ SIGNATURES = {
     "qr_lookup_launch": (_p, _p, _p, _p, _i, _i, _i32p, _i32p, _i, _i, _i,
                          _p),
     "tt_lookup_launch": (_p, _p, _p, _p, _p, _i, _i, _i32p, _i, _i, _i, _i,
-                         _i, _i, _i, _p),
+                         _i, _i, _i, _i, _p),
 }
 
 

@@ -38,9 +38,6 @@
 
 #define GRAM_PASS 32  // tiles per pass: one per lane
 
-// Dynamic shared memory a block may opt in to on an H100.
-constexpr size_t kSmemLimit = 227 * 1024;
-
 struct GramLayout {
   int n, dim, self;
   int nb;           // blocks of four rows

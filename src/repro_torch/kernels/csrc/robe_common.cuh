@@ -11,6 +11,9 @@
 #define ROBE_MAX_FIELDS 128
 #define ROBE_HASH_COEFFS 7
 
+// Dynamic shared memory a block may opt in to on an H100.
+constexpr size_t kSmemLimit = 227 * 1024;
+
 // One member of the 2-universal family of repro_torch/core/hashing.py.
 // Every coefficient is below 2^31, so each coefficient x digit product is
 // one 32 x 32 -> 64-bit multiply.  `fm` = ceil(2^64 / m) (mod 2^64) turns
@@ -61,6 +64,12 @@ static inline int robe_make_params(RobeParams* p,
   p->n_fields = n_fields;
   for (int f = 0; f < n_fields; ++f) p->tids[f] = tids[f];
   return 0;
+}
+
+// ceil(2^64 / m) mod 2^64 for 1 <= m < 2^32 (0 for m = 1): the fastmod
+// constant, as kernels/_build.py's fastmod_const computes it.
+static inline unsigned long long robe_fastmod_const(unsigned int m) {
+  return ~0ULL / m + 1ULL;
 }
 
 // (a_t t + a2 k2 + a1 k1 + a0 k0 + b) mod (2^31-1) over the 31-bit digits
@@ -120,6 +129,37 @@ __device__ __forceinline__ unsigned int robe_slot(const RobeParams& p,
       (unsigned int)(k & ((1ULL << p.log2_z) - 1ULL)));
 }
 
+// A row's elements e0 .. e0+127 (one chunk) span at most 129 blocks; the
+// lookups that hash each block once keep the chunk's block hashes in a
+// table and read an element's slot from it.  Entries a chunk needs:
+__host__ __device__ __forceinline__ int robe_chunk_blocks(int dim,
+                                                          int log2_z) {
+  return (((dim < 128 ? dim : 128) - 1) >> log2_z) + 2;
+}
+
+// Slot hash of block m of the chunk of row x that starts at element e0:
+// block (x*d + e0) / Z + m of table t (64-bit element index).
+__device__ __forceinline__ unsigned int robe_chunk_hash(const RobeParams& p,
+                                                        unsigned int t,
+                                                        int x, int e0,
+                                                        int m) {
+  const unsigned long long k0 =
+      (unsigned long long)(unsigned int)x * (unsigned)p.dim + e0;
+  return robe_uhash(p.h, t, (k0 >> p.log2_z) + m);
+}
+
+// Slot of element e0 + e (e < 128) of row x, from the chunk's block hashes
+// `hb`: the element's offset in its block, added to the block's hash and
+// wrapped once, in 32-bit arithmetic (only the low log2_z bits of x*d + e0
+// matter).
+__device__ __forceinline__ unsigned int robe_chunk_slot(
+    const RobeParams& p, const unsigned int* hb, int x, int e0, int e) {
+  const unsigned int zm = (1u << p.log2_z) - 1u;
+  const unsigned int pos =
+      (((unsigned int)x * (unsigned)p.dim + e0) & zm) + e;
+  return robe_slot_in(p, hb[pos >> p.log2_z], pos & zm);
+}
+
 // The sign hash's m is a power of two (2), so its `% m` is a mask.
 __device__ __forceinline__ float robe_sign(const RobeParams& p,
                                           unsigned int t,
@@ -152,6 +192,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
+}
+// kBytes (4, 8 or 16) bytes, kept in L1 as well: for sources that other
+// warps of the SM read again.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(kBytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

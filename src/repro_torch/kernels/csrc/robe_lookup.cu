@@ -5,53 +5,199 @@
 // _aligned_kernel and _general_kernel; helpers _hash_rows, _signs_tile).
 //
 // Bound on an H100: bytes.  Each output element is one 4-byte read of M and
-// one 4-byte write, against about twenty integer operations of hash.  At
-// full width M holds 26.1M f32 slots (104.5 MB), more than the 50 MB L2, so
-// gathers mostly go to device memory.
+// one 4-byte write.  At full width M holds 26.1M f32 slots (104.5 MB), more
+// than the 50 MB L2, so gathers mostly go to device memory.
 //
-// Design: one warp per (row, field), its lanes on consecutive elements i.
-// With Z >= 32 and d a multiple of 32, the 32 lanes of one step share one
-// block, so their slots are contiguous and the warp reads one 128-byte run
-// of M (two cache lines when the run is not aligned) -- the coalesced block
-// read of the paper's Table 1.  The same code covers both Pallas regimes:
-// Z % d == 0 (aligned, one slice per row) and Z < d (general, d/Z blocks
-// per row).  The element index x*d + i is 64-bit (x*d passes 2^32 at full
-// width) and the circular wrap is taken per element, so no padded copy of M
-// is made.  Prime and ragged batches need no padding: the last block masks
-// rows past B*F.
+// What held the first design back (one warp per (row, field), each lane
+// hashing each of its elements; 2.54 ms at B=262,144 against a 1.08 ms
+// bound on an NVIDIA H100 80GB HBM3 at 700 W) was the hash, done 32 times
+// over for every block at Z=32, and one gather in flight per lane.
+//
+// Design: blocks of kWarps warps; each warp walks groups of kItems
+// consecutive (row, field) items, blockIdx.x * kWarps + warp, + the
+// grid's warps, ... (the launcher sizes the grid to the blocks that fit on
+// the card).  Per group and chunk of at most 128 elements of each row:
+//  - the lanes hash, in one pass, every ROBE block the group's rows span
+//    (blocks (x*d + e0) >> log2_z + m for m < robe_chunk_blocks, x*d in 64
+//    bits) into a table in shared memory: one slot hash per block, not per
+//    element, whatever the regime (Z < d, Z = d, Z > d with rows sharing
+//    blocks, Z = 1);
+//  - lanes take consecutive elements, so at Z >= 32 the 32 lanes of one
+//    load read one block's contiguous run of M -- the coalesced block read
+//    of the paper's Table 1; each element's slot is its block's hash plus
+//    its offset, wrapped once (robe_chunk_slot); all kItems x 4 gathers of
+//    a lane are issued before any is used;
+//  - the values (times the sign, hashed per element from the whole index,
+//    when the spec has one) go to a stage in shared memory, and the
+//    group's rows -- contiguous in the output -- leave it as 16-byte
+//    streaming stores, so the output does not push M out of L2.
+// The rows of the next group are loaded a group ahead.  Prime and ragged
+// batches need no padding: a short last group masks its missing items.
+// Four items a group beat eight on the card at both serve batches (more
+// warps share a small batch; as many gathers in flight at a large one).
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_split.py):
+// at B=262,144 what remains is the gathers' trips to device memory -- M is
+// twice the L2 -- about 1 ms above the same kernel with every gather an
+// L1 hit; the hash costs little now.
+#include <stdint.h>
+
 #include "robe_common.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;
+constexpr int kWarps = 4;   // warps of a block
+constexpr int kItems = 4;   // (row, field) items a warp takes at once
+constexpr int kChunk = 128; // elements of a row per table fill
+
+// What the launcher derives once from the shapes.
+struct RobePlan {
+  int nblk;       // table entries per item: robe_chunk_blocks(dim, log2_z)
+  int table;      // bytes of the table, a multiple of 16
+  int warp_bytes; // shared memory of one warp
+  int f_step;     // (warps of the grid * kItems) % n_fields
+  int pass_u, pass_m;  // 32 = pass_u * nblk + pass_m: a pass's step
+  long long groups;    // groups of kItems items
+};
+
+// Copy n elements from shared memory to device memory, lanes lane,
+// lane + step, ...: 16 bytes a store when dst is 16-byte aligned (src is,
+// by the callers' layouts), the rest one element at a time.  The 16-byte
+// stores stream (evict first): the output is written once, and should not
+// push the array the lookup gathers from out of L2.
+template <typename T>
+__device__ __forceinline__ void robe_copy_out(T* __restrict__ dst,
+                                              const T* __restrict__ src,
+                                              int n, int lane, int step) {
+  constexpr int kVec = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int nv = n / kVec;
+    for (int i = lane; i < nv; i += step)
+      __stcs(reinterpret_cast<uint4*>(dst) + i,
+             reinterpret_cast<const uint4*>(src)[i]);
+    done = nv * kVec;
+  }
+  for (int i = done + lane; i < n; i += step) dst[i] = src[i];
+}
 
 template <typename T>
-__global__ void robe_lookup_kernel(const T* __restrict__ mem,
-                                   const int* __restrict__ rows,
-                                   T* __restrict__ out, int n_rows,
-                                   const RobeParams p) {
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.y;
-  if (r >= n_rows) return;
-  const unsigned int t = p.tids[r % p.n_fields];
-  const unsigned long long k0 =
-      (unsigned long long)(unsigned int)rows[r] * (unsigned long long)p.dim;
-  T* o = out + (long long)r * p.dim;
-  for (int i = threadIdx.x; i < p.dim; i += 32) {
-    const unsigned long long k = k0 + (unsigned long long)i;
-    T v = mem[robe_slot(p, t, k)];
-    if (p.use_sign) v = from_f32<T>(to_f32(v) * robe_sign(p, t, k));
-    o[i] = v;
+__global__ void __launch_bounds__(32 * kWarps)
+    robe_lookup_kernel(const T* __restrict__ mem,
+                       const int* __restrict__ rows, T* __restrict__ out,
+                       int n_rows, const RobeParams p, const RobePlan q) {
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  char* base = reinterpret_cast<char*>(smem4) + warp * q.warp_bytes;
+  unsigned int* table = reinterpret_cast<unsigned int*>(base);
+  int* xs = reinterpret_cast<int*>(base + q.table);         // rows of a group
+  unsigned int* ts = reinterpret_cast<unsigned int*>(xs + kItems);  // tables
+  T* stage = reinterpret_cast<T*>(xs + 2 * kItems);
+  const int dim = p.dim, nblk = q.nblk, n_fields = p.n_fields;
+  const long long warps = (long long)gridDim.x * kWarps;
+  long long g = (long long)blockIdx.x * kWarps + warp;
+
+  // lane u < kItems follows item u of the warp's groups: its field, and
+  // its row one group ahead
+  long long item = g * kItems + lane;
+  int f = (int)((unsigned int)item % (unsigned int)n_fields);
+  int next = lane < kItems && item < n_rows ? rows[item] : 0;
+  // the first (item, block) pair of each table pass: lane = u * nblk + m
+  const int u0 = lane / nblk, m0 = lane - u0 * nblk;
+
+  for (; g < q.groups; g += warps) {
+    const long long first = g * kItems;
+    const int n_valid = (int)min((long long)kItems, n_rows - first);
+    if (lane < kItems) {
+      xs[lane] = next;
+      ts[lane] = p.tids[f];
+      item += warps * kItems;
+      f += q.f_step;
+      if (f >= n_fields) f -= n_fields;
+      next = item < n_rows ? rows[item] : 0;  // in flight behind this group
+    }
+    __syncwarp();
+    for (int e0 = 0; e0 < dim; e0 += kChunk) {
+      const int cw = min(kChunk, dim - e0);
+      // one slot hash per block the group's rows span in this chunk
+      for (int u = u0, m = m0; u < n_valid;) {
+        table[u * nblk + m] = robe_chunk_hash(p, ts[u], xs[u], e0, m);
+        u += q.pass_u;
+        m += q.pass_m;
+        if (m >= nblk) {
+          m -= nblk;
+          ++u;
+        }
+      }
+      __syncwarp();
+      // every gather of the group before any is used; a masked element
+      // reads slot 0 and is dropped (its table index kept in range)
+      T raw[kItems][kChunk / 32];
+#pragma unroll
+      for (int u = 0; u < kItems; ++u) {
+        const int x = xs[u];
+#pragma unroll
+        for (int i = 0; i < kChunk / 32; ++i) {
+          const int e = lane + 32 * i;
+          const bool ok = u < n_valid && e < cw;
+          raw[u][i] = mem[ok ? robe_chunk_slot(p, table + u * nblk, x, e0,
+                                               e < cw ? e : 0)
+                             : 0u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kItems; ++u) {
+        if (u >= n_valid) break;
+        const unsigned long long k0 =
+            (unsigned long long)(unsigned int)xs[u] * (unsigned)dim + e0;
+#pragma unroll
+        for (int i = 0; i < kChunk / 32; ++i) {
+          const int e = lane + 32 * i;
+          if (e >= cw) break;
+          T v = raw[u][i];
+          if (p.use_sign) v = from_f32<T>(to_f32(v) * robe_sign(p, ts[u],
+                                                                k0 + e));
+          stage[u * cw + e] = v;
+        }
+      }
+      __syncwarp();
+      if (cw == dim) {  // the group's rows are one contiguous run
+        robe_copy_out(out + first * dim, stage, n_valid * dim, lane, 32);
+      } else {
+        for (int u = 0; u < n_valid; ++u)
+          robe_copy_out(out + (first + u) * dim + e0, stage + u * cw, cw,
+                        lane, 32);
+      }
+      __syncwarp();  // the table, the stage and xs are free again
+    }
   }
 }
 
 template <typename T>
 int launch(const void* mem, const void* rows, void* out, int n_rows,
            const RobeParams& p, cudaStream_t stream) {
-  dim3 block(32, kRowsPerBlock);
-  dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  robe_lookup_kernel<T><<<grid, block, 0, stream>>>(
+  RobePlan q;
+  q.nblk = robe_chunk_blocks(p.dim, p.log2_z);
+  q.table = (int)((sizeof(unsigned) * kItems * q.nblk + 15) & ~15);
+  const int chunk = p.dim < kChunk ? p.dim : kChunk;
+  q.warp_bytes = q.table + 2 * kItems * 4 +
+                 (int)((sizeof(T) * kItems * chunk + 15) & ~15);
+  q.pass_u = 32 / q.nblk;
+  q.pass_m = 32 % q.nblk;
+  q.groups = ((long long)n_rows + kItems - 1) / kItems;
+  const size_t smem = (size_t)kWarps * q.warp_bytes;
+  auto kernel = robe_lookup_kernel<T>;
+  cudaError_t err = robe_set_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int grid = 0;
+  const long long blocks = (q.groups + kWarps - 1) / kWarps;
+  if ((err = robe_resident_grid(kernel, 32 * kWarps, smem, (int)blocks,
+                                &grid)) != cudaSuccess)
+    return (int)err;
+  q.f_step = (int)(((long long)grid * kWarps * kItems) % p.n_fields);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const T*>(mem), static_cast<const int*>(rows),
-      static_cast<T*>(out), n_rows, p);
+      static_cast<T*>(out), n_rows, p, q);
   return (int)cudaGetLastError();
 }
 
@@ -70,6 +216,7 @@ extern "C" int robe_lookup_launch(const void* mem, const void* rows,
   int err = robe_make_params(&p, coeffs, tids, n_fields, dim, log2_z,
                              use_sign);
   if (err) return err;
+  if (n_rows < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mem_dtype) {
     case 0: return launch<float>(mem, rows, out, n_rows, p, s);

@@ -25,7 +25,8 @@
 //    chunk of fields the lanes hash the blocks each row spans -- at Z=32,
 //    d=128 four, five when a row starts inside a block -- into a shared
 //    table, and an element's slot is its block's hash plus its offset in
-//    the block, wrapped once, in 32-bit arithmetic.  The `% |M|` of that
+//    the block, wrapped once, in 32-bit arithmetic (robe_chunk_* in
+//    robe_common.cuh, shared with robe_lookup.cu).  The `% |M|` of that
 //    hash is two multiplies (robe_common.cuh).
 //  - The first bag entry of an f32 array lands by cp.async, straight into
 //    the rows (bot too, when f32), and the warp starts on it at once; the
@@ -48,12 +49,6 @@ namespace {
 
 constexpr int kGroup = 8;  // fields gathered through registers together
 
-// Entries a (field, bag entry) row needs in the hash table for one chunk of
-// at most 128 of its elements: the blocks the chunk can span (at most 129).
-__host__ __device__ __forceinline__ int row_blocks(int dim, int log2_z) {
-  return (((dim < 128 ? dim : 128) - 1) >> log2_z) + 2;
-}
-
 struct Warp {
   const RobeParams& p;
   unsigned int* hashes;
@@ -67,10 +62,7 @@ struct Warp {
     for (int q = lane; q < (f1 - f0) * nblk; q += 32) {
       const int fl = q / nblk, x = ids[f0 + fl];
       if (x < 0) continue;
-      const unsigned long long k0 =
-          (unsigned long long)(unsigned int)x * (unsigned)p.dim + e0;
-      hashes[q] = robe_uhash(p.h, p.tids[f0 + fl],
-                             (k0 >> p.log2_z) + (q - fl * nblk));
+      hashes[q] = robe_chunk_hash(p, p.tids[f0 + fl], x, e0, q - fl * nblk);
     }
     __syncwarp();
   }
@@ -79,11 +71,7 @@ struct Warp {
   // filled), e < 128.
   __device__ __forceinline__ unsigned int slot(int x, int f, int f0, int e0,
                                                int e) const {
-    const unsigned int zm = (1u << p.log2_z) - 1u;
-    const unsigned int pos =
-        (((unsigned int)x * (unsigned)p.dim + e0) & zm) + e;
-    return robe_slot_in(p, hashes[(f - f0) * nblk + (pos >> p.log2_z)],
-                         pos & zm);
+    return robe_chunk_slot(p, hashes + (f - f0) * nblk, x, e0, e);
   }
 };
 
@@ -101,7 +89,7 @@ __global__ void __launch_bounds__(32)
       reinterpret_cast<unsigned int*>(rows + L.rows_floats);
   int* ids = reinterpret_cast<int*>(hashes + table);
   TB* stage = reinterpret_cast<TB*>(ids + ((f_all + 3) & ~3));
-  const int nblk = row_blocks(dim, p.log2_z);
+  const int nblk = robe_chunk_blocks(dim, p.log2_z);
   const Warp w{p, hashes, table / nblk, nblk, (int)threadIdx.x};
   const int lane = w.lane, n_pairs = gram_pairs(f_all + 1, 0);
   constexpr bool async = sizeof(TM) == sizeof(float);
@@ -245,7 +233,7 @@ int launch(const void* mem, const void* idx, const void* bot, void* out,
   // the block hashes of up to 32 fields per table fill, or when shared
   // memory is tight of one; a multiple of four entries, as is the id
   // buffer, so the stage after them stays 16-byte aligned
-  const int nblk = row_blocks(p.dim, p.log2_z);
+  const int nblk = robe_chunk_blocks(p.dim, p.log2_z);
   int table = (nblk * (p.n_fields < 32 ? p.n_fields : 32) + 3) & ~3;
   if (rows + ids + sizeof(unsigned) * table +
           gram_stage_bytes<TB>(L.stage) > kSmemLimit)

@@ -5,6 +5,10 @@
 chain G1[i1]·G2[i2]·G3[i3] over the mixed-radix split of ``id + off[f]``,
 accumulated in f32 and rounded once to the cores' dtype.
 ``tt_lookup_ref`` is the plain PyTorch version it is held against.
+
+The kernel has one instance per rank in ``RANKS`` (the chain's rows held
+in registers) and a path for any other rank; ``plan`` picks one from the
+shapes alone, and the launcher refuses an instance that does not match.
 """
 
 from __future__ import annotations
@@ -14,12 +18,40 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import tt_lookup_ref
 
-__all__ = ["tt_lookup_cuda", "tt_lookup_ref"]
+__all__ = ["tt_lookup_cuda", "tt_lookup_ref", "plan"]
 
-#: warps (one per (row, field)) of a block: kWarps in csrc/tt_lookup.cu
-WARPS = 8
-#: shared memory a block may use on Hopper (bytes)
+#: warps of a block of the ranked instances: kWarps in csrc/tt_lookup.cu
+WARPS = 2
+#: warps of a block of the any-rank path: kAnyWarps in csrc/tt_lookup.cu
+ANY_WARPS = 8
+#: ranks with an instance of their own: kRanks in csrc/tt_lookup.cu
+RANKS = (4, 8)
+#: shared memory a block may use on Hopper (bytes): kSmemLimit in
+#: csrc/gram.cuh
 MAX_SMEM = 232_448
+
+
+def _pad16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def plan(d1: int, d2: int, d3: int, rank: int, itemsize: int,
+         aligned: bool = True) -> tuple:
+    """(instance, shared memory bytes of a block) for cores of these shapes
+    and element size: the rank itself when it has an instance, the cores
+    are 16-byte aligned and a block fits; else 0, the any-rank path.
+    Mirrors ``launch_ranked`` and ``launch`` in csrc/tt_lookup.cu."""
+    if rank in RANKS and aligned:
+        pairs = d2 * ((d1 + 1) // 2)    # a lane's rows: (a, b), (a+1, b)
+        items = 32 // min(pairs, 32)    # items a warp takes at once
+        slot = (_pad16(d1 * rank * itemsize)
+                + _pad16(rank * d2 * rank * itemsize)
+                + _pad16(rank * d3 * itemsize))     # one item's slices
+        smem = WARPS * 2 * items * slot             # two buffers of slots
+        if smem <= MAX_SMEM:
+            return rank, smem
+    return 0, 4 * ANY_WARPS * (d1 * rank + rank * d2 * rank + rank * d3
+                               + d1 * d2 * rank)
 
 
 def tt_lookup_cuda(core0: torch.Tensor, core1: torch.Tensor,
@@ -64,20 +96,21 @@ def tt_lookup_cuda(core0: torch.Tensor, core1: torch.Tensor,
     if n1 * n2 * n3 >= 2 ** 31 or max(off) >= n1 * n2 * n3:
         raise ValueError(f"global rows must stay below 2^31: factors "
                          f"{(n1, n2, n3)}, largest offset {max(off)}")
-    smem = 4 * WARPS * (d1 * r + r * d2 * r + r * d3 + d1 * d2 * r)
+    code = _build.dtype_code(core0)
+    aligned = all(c.data_ptr() % 16 == 0 for c in (core0, core1, core2))
+    instance, smem = plan(d1, d2, d3, r, core0.element_size(), aligned)
     if smem > MAX_SMEM:
         raise ValueError(f"cores too wide: a block needs {smem} bytes of "
                          f"shared memory, more than {MAX_SMEM}")
     if b * f >= 2 ** 31:
         raise ValueError(f"batch too large for one launch: B*F = {b * f}")
-    code = _build.dtype_code(core0)
     out = torch.empty((b, f, dim), dtype=core0.dtype, device=dev)
     if b == 0:
         return out
     err = _build.library().tt_lookup_launch(
         core0.data_ptr(), core1.data_ptr(), core2.data_ptr(), idx.data_ptr(),
         out.data_ptr(), b * f, code, _build.field_args(off), f, n2, n3, d1,
-        d2, d3, r, _build.stream_ptr(core0))
+        d2, d3, r, instance, _build.stream_ptr(core0))
     _build.check("tt_lookup", err)
     tt_lookup_cuda.launches += 1
     return out

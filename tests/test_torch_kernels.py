@@ -25,9 +25,12 @@ from repro.nn.embedding_backends.hashed import qr_layout
 from repro.nn.embedding_backends.qrobe import GROUP_LOG2
 from repro.nn.embedding_backends.tt import factor_dim, factor_rows
 from repro_torch import kernels as tk
+from repro_torch.configs.recsys_archs import SMOKE_VOCABS
 from repro_torch.core.robe import RobeSpec as TRobeSpec
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.tt_lookup import (ANY_WARPS, MAX_SMEM, RANKS, WARPS,
+                                           plan)
 
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -290,7 +293,9 @@ def test_qr_lookup_matches_pallas_and_ref(b, dim, m, dt):
 @pytest.mark.parametrize("b,dim,rank", [
     (16, 24, TT_RANK),    # the harness's case: (d1, d2, d3) = (2, 3, 4)
     (13, 24, TT_RANK),    # prime batch
-    (16, 16, 8),          # dim 16 at the backend's default rank 8
+    (16, 16, 8),          # dim 16 at the backend's default rank 8: d1 = 1
+    (13, 18, 8),          # (2, 3, 3): d3 not a multiple of four
+    (16, 24, 3),          # a rank with no instance of its own
 ])
 @pytest.mark.parametrize("dt", ("f32", "bf16"))
 def test_tt_lookup_matches_pallas_and_ref(b, dim, rank, dt):
@@ -330,6 +335,117 @@ def test_index_helpers_match_jax():
     want = jref.tt_indices(jnp.asarray(idx), offsets, factors)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(_np(g), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# tt_lookup's index split without a division, and the choice of instance
+# ---------------------------------------------------------------------------
+
+def split_rows(g, factors) -> tuple:
+    """(i1, i2, i3) of global rows ``g`` (below 2^32) computed as
+    ``tt_divmod`` in csrc/tt_lookup.cu computes them, with no division: for
+    a radix m > 1 and c = ceil(2^64 / m) (``_build.fastmod_const``), the
+    quotient is the high half of c·g and the remainder ((c·g mod 2^64)·m)
+    >> 64, both from 32-bit halves; a radix of 1 gives g and 0."""
+    from repro_torch.kernels import _build
+    g = np.asarray(g, dtype=np.uint64)
+    s32, lo32 = np.uint64(32), np.uint64(0xFFFFFFFF)
+
+    def hi64(a, x):         # (a * x) >> 64 for a < 2^64, x < 2^32
+        return ((a >> s32) * x + (((a & lo32) * x) >> s32)) >> s32
+
+    def divmod_fast(x, m: int):
+        if m == 1:
+            return x, np.zeros_like(x)
+        c = np.uint64(_build.fastmod_const(m))
+        return hi64(c, x), hi64(c * x, np.uint64(m))   # c * x wraps
+
+    _, n2, n3 = (int(n) for n in factors)
+    rest, i3 = divmod_fast(g, n3)
+    i1, i2 = divmod_fast(rest, n2)
+    return tuple(i.astype(np.int64) for i in (i1, i2, i3))
+
+
+@pytest.mark.parametrize("factors", [
+    (589, 589, 589),                              # dlrm-criteo-tb, full
+    factor_rows(sum(SMOKE_VOCABS)),               # the smoke configs
+    factor_rows(sum(VOCABS)),                     # the harness's
+    (7, 1, 3), (2, 5, 1),                         # radices of 1
+])
+def test_tt_split_rows_matches_floor_division(factors):
+    """The kernel's quotient and remainder by multiplies (split_rows
+    emulates it) equal // and % at the edges of the mixed radix and at
+    10^5 seeded random rows."""
+    n1, n2, n3 = factors
+    total = n1 * n2 * n3
+    edges = np.array([0, n3 - 1, n3, n2 * n3 - 1, total - 1])
+    g = np.concatenate([edges[edges >= 0], np.random.RandomState(
+        total % 2 ** 31).randint(0, total, 100_000)]).astype(np.int64)
+    i1, i2, i3 = split_rows(g, factors)
+    np.testing.assert_array_equal(i3, g % n3)
+    np.testing.assert_array_equal(i2, (g // n3) % n2)
+    np.testing.assert_array_equal(i1, g // n3 // n2)
+    # and the port's own plain split agrees
+    got = tref.tt_indices(torch.from_numpy(g[:, None].astype(np.int32)),
+                          (0,), factors)
+    for a, b in zip(got, (i1, i2, i3)):
+        np.testing.assert_array_equal(a.numpy()[:, 0], b)
+
+
+def test_tt_split_rows_is_exact_below_2_to_the_32():
+    g = np.concatenate([np.arange(2 ** 32 - 4096, 2 ** 32),
+                        np.arange(2 ** 31 - 2048, 2 ** 31 + 2048)])
+    for m in (589, 3, 2 ** 31 - 1, 2 ** 16 + 1):
+        _, i2, i3 = split_rows(g, (1, m, m))
+        np.testing.assert_array_equal(i3, g % m)
+        np.testing.assert_array_equal(i2, (g // m) % m)
+
+
+@pytest.mark.parametrize("dims,rank,itemsize,aligned,want", [
+    # full dlrm-criteo-tb width: a lane per row pair (a, b), (a+1, b), so
+    # eight lanes and four items a warp, each slot 64 + 2,048 + 256 bytes,
+    # two buffers, two warps a block
+    ((2, 8, 8), 8, 4, True, (8, 2 * 2 * 4 * 2368)),
+    ((2, 8, 8), 8, 2, True, (8, 2 * 2 * 4 * 1184)),
+    ((2, 3, 4), 4, 4, True, (4, 2 * 2 * 10 * (32 + 192 + 64))),
+    # d3 = 3 in bf16: slices padded to 16 bytes each
+    ((2, 3, 3), 8, 2, True, (8, 2 * 2 * 10 * (32 + 384 + 48))),
+    # d1 = 1: one real row a pair
+    ((1, 4, 4), 8, 4, True, (8, 2 * 2 * 8 * (32 + 1024 + 128))),
+    # 32 row pairs: one item a warp, a lane one pair
+    ((8, 8, 8), 8, 4, True, (8, 2 * 2 * 1 * 2560)),
+    # no instance: rank 3, or cores off 16-byte alignment
+    ((2, 3, 4), 3, 4, True, (0, 4 * 8 * (6 + 27 + 12 + 18))),
+    ((2, 8, 8), 8, 4, False, (0, 4 * 8 * (16 + 512 + 64 + 128))),
+])
+def test_tt_plan_picks_instance_by_shape(dims, rank, itemsize, aligned, want):
+    assert plan(*dims, rank, itemsize, aligned) == want
+
+
+def test_tt_plan_reports_a_block_too_large_for_the_card():
+    """When no path fits, plan says so and the wrapper raises before any
+    launch (its smem check)."""
+    inst, smem = plan(2, 256, 8, 8, 4)
+    assert inst == 0 and smem > MAX_SMEM
+
+
+def test_tt_constants_match_the_kernel_source():
+    """WARPS, ANY_WARPS, RANKS and MAX_SMEM of kernels/tt_lookup.py are the
+    constants csrc/tt_lookup.cu and csrc/robe_common.cuh build with."""
+    import re
+    from repro_torch.kernels import _build
+    tt = (_build.CSRC / "tt_lookup.cu").read_text()
+    common = (_build.CSRC / "robe_common.cuh").read_text()
+
+    def const(name, text):
+        return re.search(r"constexpr \w+ " + name + r"(\[\])? = ([^;]+);",
+                         text).group(2)
+    assert int(const("kWarps", tt)) == WARPS
+    assert int(const("kAnyWarps", tt)) == ANY_WARPS
+    assert tuple(int(r) for r in const("kRanks", tt).strip("{}").split(",")) \
+        == RANKS
+    a, b = const("kSmemLimit", common).split("*")
+    assert int(a) * int(b) == MAX_SMEM
 
 
 # ---------------------------------------------------------------------------

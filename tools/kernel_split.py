@@ -1,19 +1,35 @@
-"""Split the time of the dot_interaction and serve_fused kernels.
+"""Split the time of the port's redesigned kernels into their parts.
 
-    python3 tools/kernel_split.py [CSRC_DIR]
+    python3 tools/kernel_split.py [--only di,sf,tt,rl] [CSRC_DIR ...]
 
-Builds variants of the two kernels from the sources in CSRC_DIR (by default
-``src/repro_torch/kernels/csrc``; an older tree works too, e.g. from ``git
-archive <commit> src/repro_torch/kernels/csrc | tar -x -C build/old``):
-each as it is, with the gram skipped (the kernel writes one value per
-sample instead, so its loads stay live), and serve_fused with the sign hash
-replaced by a constant.  Each variant is compiled with nvcc into its own
-library under ``build/kernel_split/`` and timed at B=512 and B=262144 on
-the ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32, |M| = 26,135,627) with
-CUDA events (median of 21 runs of 8 back-to-back launches), beside
-``torch.bmm`` on the same [B, 27, 128] input.  Prints one JSON object, the
-card's name and power limit included.  The variants are made at run time
-and never kept in the repository.  Needs one CUDA card and nvcc.
+Builds variants of four kernels from the sources in each CSRC_DIR (by
+default ``src/repro_torch/kernels/csrc``; an older tree works too, e.g.
+from ``git archive <commit> src/repro_torch/kernels/csrc | tar -x -C
+build/old``), each as it is and with one part taken out:
+
+- ``dot_interaction``: the gram skipped (the kernel writes one value per
+  sample instead, so its loads stay live);
+- ``serve_fused``: the gram skipped; the sign hash replaced by a constant;
+- ``tt_lookup``: the chain skipped (the core slices are gathered and one
+  value per item is written); the gathers skipped (every item reads the
+  slices of row 0: the index split and the gathers go, the chain and the
+  stores stay); stores only; and, where the output is stored with the
+  streaming (evict-first) hint, plain stores instead;
+- ``robe_lookup``: the block hash replaced by a constant (each slot is the
+  element's offset in its block, so the hash goes and every gather hits
+  L1); stores only; plain stores instead of streaming ones, where used.
+
+Each variant is compiled with nvcc into its own library under
+``build/kernel_split/`` (all at once) and timed at B=512 and B=262144 on
+the ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32, |M| = 26,135,627; TT
+factors (589, 589, 589), dims (2, 8, 8), rank 8) with CUDA events (median
+of 21 runs of 8 back-to-back launches), beside ``torch.bmm`` on the same
+[B, 27, 128] input.  Several CSRC_DIRs are timed in one process, in turns;
+``--only`` keeps the named kernels (di = dot_interaction, sf =
+serve_fused, tt = tt_lookup, rl = robe_lookup).
+Prints one JSON object, the card's name and power limit included.  The
+variants are made at run time and never kept in the repository.  Needs
+one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -36,11 +52,13 @@ from repro_torch.configs.recsys_archs import CRITEO_TB_VOCABS  # noqa: E402
 from repro_torch.core.robe import RobeSpec, init_memory  # noqa: E402
 from repro_torch.data import CtrDataConfig, CtrStream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.tt_lookup import plan as tt_plan  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_split"
 NVCC = ("/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared")
 F, D, SIZE = 26, 128, 26_135_627
+TT_FACTORS, TT_DIMS, TT_RANK = (589, 589, 589), (2, 8, 8), 8
 
 # the gram skipped: the first port's epilogue (gram_tril in
 # robe_common.cuh), then the warp gram of gram.cuh
@@ -60,12 +78,85 @@ SKIP_NEW = (r"if (lane == 0) (\3)[0] = from_f32<\1>(\2[0] + "
             r"\2[gram_row(L.w4, L.n - 1)]);\n    __syncwarp();")
 SIGN = re.compile(r"robe_sign\(p, [^()]*\)")
 
+# tt_lookup's first design, one warp per item (the any-rank path since):
+# (pattern, replacement, count) per variant
+TT_WARP = {
+    "nochain": [(r"  // t\[a, b, q\].*?o\[e\] = from_f32<T>\(acc\);\n  \}\n",
+                 "  if (lane == 0) out[(long long)row * (p.d1 * d2 * d3)] = "
+                 "from_f32<T>(s1[0] + s2[n2c - 1] + s3[n3c - 1]);\n", 1)],
+    "nogather": [(r"\(long long\)i[123] \* ", "0LL * ", 3)],
+    "storeonly": [(r"(  if \(row >= n_rows\) return;\n)",
+                   r"\1  { const int dd = p.d1 * p.d2 * p.d3;\n"
+                   r"    for (int e = lane; e < dd; e += 32)\n"
+                   r"      out[(long long)row * dd + e] = from_f32<T>(0.f);\n"
+                   r"    return; }\n", 1)],
+}
+# tt_lookup with the rank as a template parameter: tt_copy starts an item's
+# gathers, tt_chain contracts and stores its row
+TT_RANKED = {
+    "nochain": [(r"tt_chain<T, R>\([^;]*;",
+                 "if (jl == 0) out[item * dim] = *reinterpret_cast<const T*>("
+                 "bufs + (bb * q.items + j) * q.slot + q.o2);", 1)],
+    "nogather": [(r"(tt_copy<T, R>\([^;]*?), i1,\s*i2, i3,",
+                  r"\1, 0u, 0u, 0u,", 1)],
+    "storeonly": [(r"tt_copy<T, R>\(bufs[^;]*;", ";", 1),
+                  (r"tt_chain<T, R>\([^;]*;",
+                   "for (int e = jl; e < dim; e += q.lanes) "
+                   "out[item * dim + e] = from_f32<T>(0.f);", 1)],
+}
+# the output's streaming (evict-first) stores made plain stores
+PLAIN = [(r"__stcs\(([^,]+),\s*(.*?)\);", r"*(\1) = \2;", None)]
+TT_RANKED["plainstore"] = PLAIN
+# robe_lookup's first design, one warp per item
+ROBE_WARP = {
+    "nohash": [(r"mem\[robe_slot\(p, t, k\)\]",
+                "mem[(unsigned int)(k & ((1ULL << p.log2_z) - 1ULL))]", 1)],
+    "storeonly": [(r"T v = mem\[robe_slot\(p, t, k\)\];",
+                   "T v = from_f32<T>(0.f);", 1)],
+}
+# robe_lookup hashing each block once: the table fill and the gathers
+ROBE_BLOCK = {
+    "nohash": [(r"robe_chunk_hash\([^;]*\);", "0u;", 1)],
+    "storeonly": [(r"mem\[ok \? robe_chunk_slot\(.*?: 0u\]",
+                   "from_f32<T>(0.f)", 1)],
+    "plainstore": PLAIN,
+}
+#: variant name -> (source, launcher, {generation: transforms} or flags)
+VARIANTS = {
+    "di": ("dot_interaction.cu", {}),
+    "di_nogram": ("dot_interaction.cu", {"nogram": True}),
+    "sf": ("serve_fused.cu", {}),
+    "sf_nogram": ("serve_fused.cu", {"nogram": True}),
+    "sf_nosign": ("serve_fused.cu", {"nosign": True}),
+    "sf_nogram_nosign": ("serve_fused.cu", {"nogram": True, "nosign": True}),
+    "tt": ("tt_lookup.cu", {}),
+    "tt_nochain": ("tt_lookup.cu", {"part": "nochain"}),
+    "tt_nogather": ("tt_lookup.cu", {"part": "nogather"}),
+    "tt_storeonly": ("tt_lookup.cu", {"part": "storeonly"}),
+    "tt_plainstore": ("tt_lookup.cu", {"part": "plainstore"}),
+    "rl": ("robe_lookup.cu", {}),
+    "rl_nohash": ("robe_lookup.cu", {"part": "nohash"}),
+    "rl_storeonly": ("robe_lookup.cu", {"part": "storeonly"}),
+    "rl_plainstore": ("robe_lookup.cu", {"part": "plainstore"}),
+}
+LAUNCHERS = {"di": "dot_interaction_launch", "sf": "serve_fused_launch",
+             "tt": "tt_lookup_launch", "rl": "robe_lookup_launch"}
+
 
 def is_old(csrc: Path) -> bool:
     return "gram_tril" in (csrc / "robe_common.cuh").read_text()
 
 
-def variant(csrc: Path, name: str, src: str, nogram=False, nosign=False):
+def subst(text: str, rules, name: str) -> str:
+    """Each rule applied `count` times (None: at least once)."""
+    for pat, repl, count in rules:
+        text, k = re.subn(pat, repl, text, flags=re.S)
+        assert k == count if count is not None else k > 0, (name, pat, k)
+    return text
+
+
+def variant(csrc: Path, tag: str, name: str, src: str, nogram=False,
+            nosign=False, part=None):
     text = (csrc / src).read_text()
     if nogram and is_old(csrc):
         text = text.replace('#include "robe_common.cuh"',
@@ -78,7 +169,15 @@ def variant(csrc: Path, name: str, src: str, nogram=False, nosign=False):
     if nosign:
         text, k = SIGN.subn("(-1.f)", text)
         assert k >= 1, name
-    out = OUT / (name + ".cu")
+    if part:
+        if src == "tt_lookup.cu":
+            rules = TT_RANKED if "tt_chain<" in text else TT_WARP
+        else:
+            rules = ROBE_BLOCK if "robe_chunk_slot" in text else ROBE_WARP
+        if part not in rules:       # a part this design does not have
+            return None
+        text = subst(text, rules[part], name)
+    out = OUT / tag / (name + ".cu")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(text)
     return out
@@ -89,6 +188,11 @@ def build(csrc: Path, cu: Path):
     cmd = [*NVCC, "-I", str(csrc), "-o", str(lib), str(cu)]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
+
+
+def n_params(text: str, launcher: str) -> int:
+    m = re.search(r'extern "C" int ' + launcher + r"\(([^)]*)\)", text)
+    return len(m.group(1).split(","))
 
 
 def device_ms(fn, inputs, inner=8, reps=21):
@@ -118,41 +222,52 @@ def hash_coeffs(spec, tids, old: bool):
     return (ctypes.c_uint64 * 12)(*(vals[0:6] + vals[7:13])), ta
 
 
+def load(trees: dict, only) -> dict:
+    """{tag: {variant: (launcher, takes no instance argument)}}: every
+    variant of every tree written first, then all built at once."""
+    names = [k for k in VARIANTS if not only or k.split("_")[0] in only]
+    cus = {(tag, k): variant(csrc, tag, k, VARIANTS[k][0], **VARIANTS[k][1])
+           for tag, csrc in trees.items() for k in names}
+    procs = {key: build(trees[key[0]], cu) for key, cu in cus.items()
+             if cu is not None}
+    logs = {key: p.communicate()[0] for key, (_, p) in procs.items()}
+    failed = [key for key, (_, p) in procs.items() if p.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" +
+                           "\n".join(logs[key] for key in failed))
+    fns = {tag: {} for tag in trees}
+    for (tag, k), (lib, _) in procs.items():
+        name = LAUNCHERS[k.split("_")[0]]
+        fn = getattr(ctypes.CDLL(str(lib)), name)
+        argtypes = _build.SIGNATURES[name]
+        # the first tt launcher took no instance argument
+        n = n_params((trees[tag] / VARIANTS[k][0]).read_text(), name)
+        fn.argtypes = argtypes[:n - 1] + argtypes[-1:] \
+            if n < len(argtypes) else argtypes
+        fn.restype = ctypes.c_int
+        fns[tag][k] = (fn, n < len(argtypes))
+    return fns
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA card", file=sys.stderr)
         return 1
-    csrc = Path(sys.argv[1] if len(sys.argv) > 1 else
-                ROOT / "src/repro_torch/kernels/csrc").resolve()
-    old = is_old(csrc)
+    args = sys.argv[1:]
+    only = None
+    if args[:1] == ["--only"]:
+        only, args = set(args[1].split(",")), args[2:]
+    dirs = [Path(a).resolve() for a in args] or \
+        [ROOT / "src/repro_torch/kernels/csrc"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    specs = {
-        "di": ("dot_interaction.cu", {}),
-        "di_nogram": ("dot_interaction.cu", {"nogram": True}),
-        "sf": ("serve_fused.cu", {}),
-        "sf_nogram": ("serve_fused.cu", {"nogram": True}),
-        "sf_nosign": ("serve_fused.cu", {"nosign": True}),
-        "sf_nogram_nosign": ("serve_fused.cu", {"nogram": True,
-                                                "nosign": True}),
-    }
     t0 = time.time()
-    procs = {k: build(csrc, variant(csrc, k, s, **kw))
-             for k, (s, kw) in specs.items()}
-    libs = {}
-    for k, (lib, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode:
-            print(out, file=sys.stderr)
-            return 1
-        libs[k] = ctypes.CDLL(str(lib))
-        name = ("dot_interaction_launch" if k.startswith("di")
-                else "serve_fused_launch")
-        fn = getattr(libs[k], name)
-        fn.argtypes = _build.SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    res = {"card": smi, "csrc": str(csrc), "build_s": time.time() - t0}
+    fns = load({f"t{i}": d for i, d in enumerate(dirs)}, only)
+    trees = {f"t{i}": (d, is_old(d), fns[f"t{i}"])
+             for i, d in enumerate(dirs)}
+    res = {"card": smi, "build_s": time.time() - t0,
+           **{tag: {"csrc": str(d)} for tag, (d, _, _) in trees.items()}}
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -161,6 +276,14 @@ def main() -> int:
     memory = init_memory(gen, spec, dev)
     tids = tuple(range(F))
     s = torch.cuda.current_stream().cuda_stream
+    tt_off = [0]
+    for v in CRITEO_TB_VOCABS[:-1]:
+        tt_off.append(tt_off[-1] + v)
+    (n1, n2, n3), (d1, d2, d3), r = TT_FACTORS, TT_DIMS, TT_RANK
+    cores = [0.3 * torch.randn(shape, generator=gen, device=dev) for shape in
+             ((n1, d1, r), (n2, r, d2, r), (n3, r, d3))]
+    tt_inst = tt_plan(d1, d2, d3, r, 4, cores)[0]
+    off_arr = _build.field_args(tuple(tt_off))
     for b, n_in in ((512, 8), (262144, 1)):
         stream = CtrStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
                                          n_dense=13, batch_size=b, seed=0))
@@ -171,28 +294,50 @@ def main() -> int:
         bots = [torch.randn((b, D), generator=gen, device=dev)
                 for _ in range(n_in)]
         out = torch.empty((b, (F + 1) * F // 2), device=dev)
-        for k, lib in libs.items():
-            if k.startswith("di"):
-                fn = lambda x, lib=lib: lib.dot_interaction_launch(
-                    x.data_ptr(), out.data_ptr(), b, F + 1, D, 0, 0, s)
-                res[f"{k}_{b}"] = device_ms(fn, [(x,) for x in feats])
-                continue
-            for sign in (False, True):
-                if k.endswith("nosign") and not sign:
+        emb = torch.empty((b, F, D), device=dev)
+        for k in VARIANTS:
+            for tag, (csrc, old, fns) in trees.items():
+                if k not in fns:
                     continue
-                sp = RobeSpec(size=SIZE, block_size=32, seed=0,
-                              use_sign=sign)
-                co, ta = hash_coeffs(sp, tids, old)
-                fn = lambda r, bt, lib=lib, co=co, ta=ta, sign=sign: \
-                    lib.serve_fused_launch(
-                        memory.data_ptr(), r.data_ptr(), bt.data_ptr(),
-                        out.data_ptr(), b, 1, 0, 0, co, ta, F, D,
-                        sp.log2_z, int(sign), s)
-                res[f"{k}_sign{int(sign)}_{b}"] = device_ms(
-                    fn, list(zip(rows, bots)))
+                fn, no_inst = fns[k]
+                key = f"{tag}_{k}"
+                if k.startswith("di"):
+                    res[f"{key}_{b}"] = device_ms(
+                        lambda x, fn=fn: fn(x.data_ptr(), out.data_ptr(), b,
+                                            F + 1, D, 0, 0, s),
+                        [(x,) for x in feats])
+                elif k.startswith("tt"):
+                    extra = () if no_inst else (tt_inst,)
+                    res[f"{key}_{b}"] = device_ms(
+                        lambda x, fn=fn, extra=extra: fn(
+                            *(c.data_ptr() for c in cores), x.data_ptr(),
+                            emb.data_ptr(), b * F, 0, off_arr, F, n2, n3, d1,
+                            d2, d3, r, *extra, s),
+                        [(x,) for x in rows])
+                elif k.startswith("rl"):
+                    co, ta = hash_coeffs(spec, tids, old)
+                    res[f"{key}_{b}"] = device_ms(
+                        lambda x, fn=fn, co=co, ta=ta: fn(
+                            memory.data_ptr(), x.data_ptr(), emb.data_ptr(),
+                            b * F, 0, co, ta, F, D, spec.log2_z, 0, s),
+                        [(x,) for x in rows])
+                else:
+                    for sign in (False, True):
+                        if k.endswith("nosign") and not sign:
+                            continue
+                        sp = RobeSpec(size=SIZE, block_size=32, seed=0,
+                                      use_sign=sign)
+                        co, ta = hash_coeffs(sp, tids, old)
+                        res[f"{key}_sign{int(sign)}_{b}"] = device_ms(
+                            lambda x, bt, fn=fn, co=co, ta=ta, sign=sign: fn(
+                                memory.data_ptr(), x.data_ptr(),
+                                bt.data_ptr(), out.data_ptr(), b, 1, 0, 0,
+                                co, ta, F, D, sp.log2_z, int(sign), s),
+                            list(zip(rows, bots)))
+        torch.cuda.synchronize()
         res[f"bmm_{b}"] = device_ms(lambda x: torch.bmm(x, x.transpose(1, 2)),
                                     [(x,) for x in feats])
-        del rows, feats, bots, out
+        del rows, feats, bots, out, emb
         torch.cuda.empty_cache()
     print(json.dumps(res))
     return 0
