@@ -16,9 +16,12 @@ non-zero on failure:
    (2, 8, 8), rank 8): ``robe_lookup`` and ``qrobe_lookup`` exactly
    (torch.equal), ``qr_lookup`` exactly in f32 and within 1e-2 in bf16,
    ``dot_interaction``, ``serve_fused`` and ``tt_lookup`` within
-   rtol = atol = 1e-5 in f32 and 1e-2 in bf16; ``robe_lookup`` in every
-   regime of its block hash (``ROBE_REGIMES``), f32 and bf16, the sign on
-   and off, B in 1, 509, 512, with a row of 2^31 - 1; ``tt_lookup`` at
+   rtol = atol = 1e-5 in f32 and 1e-2 in bf16; ``robe_lookup`` and
+   ``qrobe_lookup`` in every regime of their block hash
+   (``ROBE_REGIMES``), f32 and bf16, the sign on and off, B in 1, 509,
+   512, with a row of 2^31 - 1, ``qrobe_lookup`` without and with a
+   nonzero ``delta``, and also on rows that cross the circular wrap at |M|
+   inside the last, partial scale group; ``tt_lookup`` at
    full width, with cores off 16-byte alignment, and at ``TT_SHAPES``
    (ranks 4 and 8, d3 = 3, d1 = 1, and rank 3, which has no instance),
    f32 and bf16, B in 1, 509, 512; ``dot_interaction`` also
@@ -31,13 +34,17 @@ non-zero on failure:
    set to 0 before the path and read after it:
    ``EmbeddingServer.score("robe", ...)`` through the fused path
    (``use_kernel=True``) and the unfused path on the same weights, then
-   ``score`` for the ``qrobe``, ``hashed`` and ``tt`` substrates; the
-   scores must be finite, the two robe paths must agree within
+   ``score`` for the ``qrobe``, ``hashed`` and ``tt`` substrates, each of
+   which must launch its lookup kernel once a batch, ``dot_interaction``,
+   and no other kernel (``qrobe`` adds its ``delta`` term inside its own
+   launch); the scores must be finite, the two robe paths must agree within
    rtol = atol = 1e-4, and every path must agree as closely with the same
    entry point run on the CPU (the plain versions);
 4. times with CUDA events (median of 21 repetitions, launches queued behind
    a sleep kernel so the host does not starve the card): each kernel at
-   B=512 and B=262144 beside its bound, its plain version at B=512,
+   B=512 and B=262144 beside its bound (``qrobe_lookup`` also with the
+   params' ``delta``, whose bound adds a 4-byte read per touched slot),
+   its plain version at B=512,
    ``torch.bmm`` as the library yardstick of ``dot_interaction``, and
    ``score`` end to end for every path; plus a ``torch.profiler``
    breakdown of ``score`` at B=262144 by device kernel for every path,
@@ -63,7 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.recsys_archs import CRITEO_TB_VOCABS
-from repro_torch.core.robe import (RobeSpec, init_memory,
+from repro_torch.core.robe import (init_memory,
                                    robe_slots)
 from repro_torch.data import (CtrDataConfig, CtrStream,
                               RequestStream)
@@ -167,6 +174,26 @@ def random_rows(gen, shape, dev) -> torch.Tensor:
     return rows.contiguous()
 
 
+def wrap_rows(gen, spec, dev, b: int = 509, chunk: int = 8192) -> torch.Tensor:
+    """[b, F] random rows with, in place of some, every (row, field) found
+    among 2^18 random samples whose d=128 elements reach slot |M| - 1 (in
+    the last, partial scale group) and go on to slot 0 inside one ROBE
+    block: the circular wrap.  Fails if none is found."""
+    rows = random_rows(gen, (b, F), dev)
+    tids = torch.arange(F, device=dev)[None, :]
+    hits = []
+    for _ in range(2 ** 18 // chunk):
+        cand = random_rows(gen, (chunk, F), dev)
+        s = robe_slots(spec, tids, cand, D)
+        at = (s[..., :-1] == spec.size - 1) & (s[..., 1:] == 0)
+        hits += [(int(c), int(f), cand[c, f]) for c, f in
+                 torch.nonzero(at.any(-1)).tolist()]
+    require(len(hits) > 0, "no row crosses the wrap at |M|")
+    for k, (_, f, x) in enumerate(hits[:b]):
+        rows[k, f] = x
+    return rows.contiguous()
+
+
 def max_err(got, want) -> float:
     if got.numel() == 0:
         return 0.0
@@ -216,8 +243,6 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
         record("robe_lookup", got, want)
     del mems
     torch.cuda.synchronize()
-    aligned = RobeSpec(size=spec.size, block_size=16, seed=spec.seed,
-                       use_sign=True)                      # Z = d = 16
 
     # full width, then the ragged shapes of the register tiling: F rows not
     # a multiple of four, D not a multiple of four, batches of one, primes;
@@ -271,24 +296,35 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
     torch.cuda.synchronize()
 
     # qrobe_lookup: codes and scales from quantizing the full |M|-slot
-    # array; a gather, two f32 multiplies and one rounding, so exactly equal
+    # array, and a nonzero delta; a gather, f32 multiplies, one rounding
+    # (and with delta a second term and one more), so exactly equal, in
+    # every regime of the block hash, both dtypes, the sign on and off,
+    # without and with delta; then on rows whose runs cross the circular
+    # wrap at |M| inside the last, partial scale group
     qp = subs.params("qrobe")["embedding"]
     qspec = subs.recsys_config("qrobe").embedding_spec().robe
     scales = {torch.float32: qp["scale"],
               torch.bfloat16: qp["scale"].to(torch.bfloat16)}
-    cases = [(b, dataclasses.replace(qspec, use_sign=s), dt, D)
-             for b in (B_P99, 509) for s in (False, True) for dt in scales]
-    cases.append((509, dataclasses.replace(aligned, size=qspec.size),
-                  torch.float32, 16))                      # Z = d = 16
-    for b, sp, dt, dim in cases:
-        got = qrobe_lookup_cuda(qp["codes"], scales[dt], rows[:b], tids, dim,
-                                sp, GROUP_LOG2)
-        want = qrobe_lookup_ref(qp["codes"], scales[dt], rows[:b], tids, dim,
-                                sp, GROUP_LOG2)
+    delta = 1e-3 * torch.randn(qspec.size, generator=gen, device=dev)
+    wrap = wrap_rows(gen, qspec, dev)
+    cases = [(robe_rows[:b], dataclasses.replace(qspec, block_size=z,
+                                                 use_sign=s), dim)
+             for (dim, z), s, b in itertools.product(
+                 ROBE_REGIMES, (False, True), PHASE2_BATCHES)]
+    cases += [(wrap, dataclasses.replace(qspec, use_sign=s), D)
+              for s in (False, True)]
+    for (idx, sp, dim), dt, dl in itertools.product(cases, scales,
+                                                    (None, delta)):
+        got = qrobe_lookup_cuda(qp["codes"], scales[dt], idx, tids, dim,
+                                sp, GROUP_LOG2, dl)
+        want = qrobe_lookup_ref(qp["codes"], scales[dt], idx, tids, dim,
+                                sp, GROUP_LOG2, dl)
         require(torch.equal(got, want),
-                f"qrobe_lookup B={b} Z={sp.block_size} d={dim} "
-                f"sign={sp.use_sign} {dt}: max err {max_err(got, want)}")
+                f"qrobe_lookup B={idx.shape[0]} Z={sp.block_size} d={dim} "
+                f"sign={sp.use_sign} {dt} delta={dl is not None}: max err "
+                f"{max_err(got, want)}")
         record("qrobe_lookup", got, want)
+    del delta
     torch.cuda.synchronize()
 
     # qr_lookup: one product rounded once, exactly equal in f32
@@ -445,11 +481,13 @@ def substrate_paths(subs) -> dict:
     for kind, kernel in SUBSTRATES.items():
         scores, c = run_path(subs, batches, kind)
         counts[kind] = c
-        need = [kernel, "dot_interaction"] + \
-            (["robe_lookup"] if kind == "qrobe" else [])
+        need = [kernel, "dot_interaction"]
         print(f"launches {kind} path: {c}")
-        require(all(c[k] > 0 for k in need) and c["serve_fused"] == 0,
-                f"the {kind} path must launch {need} and not serve_fused")
+        require(c[kernel] == len(batches) and
+                all(c[k] > 0 for k in need) and
+                all(n == 0 for k, n in c.items() if k not in need),
+                f"the {kind} path must launch {kernel} once a batch, "
+                f"dot_interaction, and no other kernel")
         diff = 0.0
         for (batch, n), got in zip(batches, scores):
             require(got.shape == (n,) and np.isfinite(got).all(),
@@ -555,6 +593,11 @@ def time_kernels(gen, memory, spec, subs, rates, dev) -> dict:
             lambda r: tt_lookup_cuda(*cores, r, offsets, factors, D),
             lambda r: tt_lookup_ref(*cores, r, offsets, factors, D)),
     }
+    q_delta = (   # qrobe_lookup with the params' delta term
+        lambda r: qrobe_lookup_cuda(qp["codes"], qp["scale"], r, tids, D,
+                                    qspec, GROUP_LOG2, qp["delta"]),
+        lambda r: qrobe_lookup_ref(qp["codes"], qp["scale"], r, tids, D,
+                                   qspec, GROUP_LOG2, qp["delta"]))
     out = {k: {} for k in KERNELS}
     for b, n_in in ((B_P99, 8), (B_BULK, 1)):
         tag = "" if b == B_P99 else "_bulk"
@@ -587,11 +630,16 @@ def time_kernels(gen, memory, spec, subs, rates, dev) -> dict:
                                        + d1 * d2 * d3 * rank)),
         }
         torch.cuda.synchronize()
+        # qrobe_lookup with delta: the same, plus a 4-byte read of delta
+        # for each touched slot
+        nbytes, flops = touched["qrobe_lookup"]
+        touched["qrobe_lookup_delta"] = (nbytes + uniq * 4, flops)
         for k, (nbytes, flops) in touched.items():
-            o = out[k]
-            o["bound_ms" + tag], o["bound_by" + tag] = bound(nbytes, flops,
+            o, sfx = (out["qrobe_lookup"], "_delta" + tag) \
+                if k == "qrobe_lookup_delta" else (out[k], tag)
+            o["bound_ms" + sfx], o["bound_by" + sfx] = bound(nbytes, flops,
                                                              rates)
-            o["library_ms" + tag] = None
+            o["library_ms" + sfx] = None
         out["robe_lookup"]["touched_slots" + tag] = uniq
 
         out["robe_lookup"]["ms" + tag] = device_ms(
@@ -606,6 +654,8 @@ def time_kernels(gen, memory, spec, subs, rates, dev) -> dict:
             list(zip(rows, bots)))
         for k, (cuda, _) in calls.items():
             out[k]["ms" + tag] = device_ms(cuda, [(r,) for r in rows])
+        out["qrobe_lookup"]["ms_delta" + tag] = device_ms(
+            q_delta[0], [(r,) for r in rows])
 
         if b == B_P99:
             out["robe_lookup"]["plain_ms"] = device_ms(
@@ -618,6 +668,8 @@ def time_kernels(gen, memory, spec, subs, rates, dev) -> dict:
                 list(zip(rows, bots)))
             for k, (_, plain) in calls.items():
                 out[k]["plain_ms"] = device_ms(plain, [(r,) for r in rows])
+            out["qrobe_lookup"]["plain_ms_delta"] = device_ms(
+                q_delta[1], [(r,) for r in rows])
         del rows, feats, bots, seen, qi, ri, i1, i2, i3
         torch.cuda.empty_cache()
     return out

@@ -44,8 +44,8 @@ SIGNATURES = {
     "dot_interaction_launch": (_p, _p, _i, _i, _i, _i, _i, _p),
     "serve_fused_launch": (_p, _p, _p, _p, _i, _i, _i, _i, _u64p, _u32p, _i,
                            _i, _i, _i, _p),
-    "qrobe_lookup_launch": (_p, _p, _p, _p, _i, _i, _u64p, _u32p, _i, _i, _i,
-                            _i, _i, _p),
+    "qrobe_lookup_launch": (_p, _p, _p, _p, _p, _i, _i, _u64p, _u32p, _i, _i,
+                            _i, _i, _i, _p),
     "qr_lookup_launch": (_p, _p, _p, _p, _i, _i, _i32p, _i32p, _i, _i, _i,
                          _p),
     "tt_lookup_launch": (_p, _p, _p, _p, _p, _i, _i, _i32p, _i, _i, _i, _i,

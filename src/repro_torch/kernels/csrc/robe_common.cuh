@@ -4,6 +4,8 @@
 // code needed).
 #pragma once
 
+#include <stdint.h>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -129,12 +131,16 @@ __device__ __forceinline__ unsigned int robe_slot(const RobeParams& p,
       (unsigned int)(k & ((1ULL << p.log2_z) - 1ULL)));
 }
 
+// Elements of a row in one chunk: the lookups that hash each block once
+// fill their table of block hashes a chunk at a time.
+constexpr int kRobeChunk = 128;
+
 // A row's elements e0 .. e0+127 (one chunk) span at most 129 blocks; the
 // lookups that hash each block once keep the chunk's block hashes in a
 // table and read an element's slot from it.  Entries a chunk needs:
 __host__ __device__ __forceinline__ int robe_chunk_blocks(int dim,
                                                           int log2_z) {
-  return (((dim < 128 ? dim : 128) - 1) >> log2_z) + 2;
+  return (((dim < kRobeChunk ? dim : kRobeChunk) - 1) >> log2_z) + 2;
 }
 
 // Slot hash of block m of the chunk of row x that starts at element e0:
@@ -158,6 +164,56 @@ __device__ __forceinline__ unsigned int robe_chunk_slot(
   const unsigned int pos =
       (((unsigned int)x * (unsigned)p.dim + e0) & zm) + e;
   return robe_slot_in(p, hb[pos >> p.log2_z], pos & zm);
+}
+
+// What the launcher of a lookup whose warps walk groups of `items`
+// (row, field) items, one table of block hashes each, derives once from
+// the shapes.
+struct RobePlan {
+  int nblk;       // table entries per item: robe_chunk_blocks(dim, log2_z)
+  int table;      // bytes of the table, a multiple of 16
+  int warp_bytes; // shared memory of one warp
+  int f_step;     // (warps of the grid * items) % n_fields
+  int pass_u, pass_m;  // 32 = pass_u * nblk + pass_m: a pass's step
+  long long groups;    // groups of `items` items
+};
+
+// A warp's shared memory: the table, the group's rows and table ids, and
+// a stage of `items` chunks of `elem_bytes`-byte outputs.
+static inline RobePlan robe_make_plan(const RobeParams& p, int n_rows,
+                                      int items, int elem_bytes) {
+  RobePlan q;
+  q.nblk = robe_chunk_blocks(p.dim, p.log2_z);
+  q.table = (int)((sizeof(unsigned) * items * q.nblk + 15) & ~15);
+  const int chunk = p.dim < kRobeChunk ? p.dim : kRobeChunk;
+  q.warp_bytes = q.table + 2 * items * 4 +
+                 ((elem_bytes * items * chunk + 15) & ~15);
+  q.pass_u = 32 / q.nblk;
+  q.pass_m = 32 % q.nblk;
+  q.groups = ((long long)n_rows + items - 1) / items;
+  q.f_step = 0;
+  return q;
+}
+
+// Copy n elements from shared memory to device memory, lanes lane,
+// lane + step, ...: 16 bytes a store when dst is 16-byte aligned (src is,
+// by the callers' layouts), the rest one element at a time.  The 16-byte
+// stores stream (evict first): the output is written once, and should not
+// push the array the lookup gathers from out of L2.
+template <typename T>
+__device__ __forceinline__ void robe_copy_out(T* __restrict__ dst,
+                                              const T* __restrict__ src,
+                                              int n, int lane, int step) {
+  constexpr int kVec = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int nv = n / kVec;
+    for (int i = lane; i < nv; i += step)
+      __stcs(reinterpret_cast<uint4*>(dst) + i,
+             reinterpret_cast<const uint4*>(src)[i]);
+    done = nv * kVec;
+  }
+  for (int i = done + lane; i < n; i += step) dst[i] = src[i];
 }
 
 // The sign hash's m is a power of two (2), so its `% m` is a mask.
@@ -235,5 +291,22 @@ static inline cudaError_t robe_resident_grid(K kernel, int threads,
     return err;
   const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   *grid = (int)(batch < resident ? batch : resident);
+  return cudaSuccess;
+}
+
+// The persistent grid of a lookup kernel of `warps` warps a block that
+// walks q's groups, with the kernel opted in to `smem` bytes; sets
+// q->f_step, which depends on the grid.
+template <typename K>
+static inline cudaError_t robe_plan_grid(K kernel, int warps, int items,
+                                         size_t smem, const RobeParams& p,
+                                         RobePlan* q, int* grid) {
+  cudaError_t err = robe_set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (q->groups + warps - 1) / warps;
+  if ((err = robe_resident_grid(kernel, 32 * warps, smem, (int)blocks,
+                                grid)) != cudaSuccess)
+    return err;
+  q->f_step = (int)(((long long)*grid * warps * items) % p.n_fields);
   return cudaSuccess;
 }

@@ -40,46 +40,12 @@
 // at B=262,144 what remains is the gathers' trips to device memory -- M is
 // twice the L2 -- about 1 ms above the same kernel with every gather an
 // L1 hit; the hash costs little now.
-#include <stdint.h>
-
 #include "robe_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;   // warps of a block
 constexpr int kItems = 4;   // (row, field) items a warp takes at once
-constexpr int kChunk = 128; // elements of a row per table fill
-
-// What the launcher derives once from the shapes.
-struct RobePlan {
-  int nblk;       // table entries per item: robe_chunk_blocks(dim, log2_z)
-  int table;      // bytes of the table, a multiple of 16
-  int warp_bytes; // shared memory of one warp
-  int f_step;     // (warps of the grid * kItems) % n_fields
-  int pass_u, pass_m;  // 32 = pass_u * nblk + pass_m: a pass's step
-  long long groups;    // groups of kItems items
-};
-
-// Copy n elements from shared memory to device memory, lanes lane,
-// lane + step, ...: 16 bytes a store when dst is 16-byte aligned (src is,
-// by the callers' layouts), the rest one element at a time.  The 16-byte
-// stores stream (evict first): the output is written once, and should not
-// push the array the lookup gathers from out of L2.
-template <typename T>
-__device__ __forceinline__ void robe_copy_out(T* __restrict__ dst,
-                                              const T* __restrict__ src,
-                                              int n, int lane, int step) {
-  constexpr int kVec = 16 / sizeof(T);
-  int done = 0;
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    const int nv = n / kVec;
-    for (int i = lane; i < nv; i += step)
-      __stcs(reinterpret_cast<uint4*>(dst) + i,
-             reinterpret_cast<const uint4*>(src)[i]);
-    done = nv * kVec;
-  }
-  for (int i = done + lane; i < n; i += step) dst[i] = src[i];
-}
 
 template <typename T>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -117,8 +83,8 @@ __global__ void __launch_bounds__(32 * kWarps)
       next = item < n_rows ? rows[item] : 0;  // in flight behind this group
     }
     __syncwarp();
-    for (int e0 = 0; e0 < dim; e0 += kChunk) {
-      const int cw = min(kChunk, dim - e0);
+    for (int e0 = 0; e0 < dim; e0 += kRobeChunk) {
+      const int cw = min(kRobeChunk, dim - e0);
       // one slot hash per block the group's rows span in this chunk
       for (int u = u0, m = m0; u < n_valid;) {
         table[u * nblk + m] = robe_chunk_hash(p, ts[u], xs[u], e0, m);
@@ -132,12 +98,12 @@ __global__ void __launch_bounds__(32 * kWarps)
       __syncwarp();
       // every gather of the group before any is used; a masked element
       // reads slot 0 and is dropped (its table index kept in range)
-      T raw[kItems][kChunk / 32];
+      T raw[kItems][kRobeChunk / 32];
 #pragma unroll
       for (int u = 0; u < kItems; ++u) {
         const int x = xs[u];
 #pragma unroll
-        for (int i = 0; i < kChunk / 32; ++i) {
+        for (int i = 0; i < kRobeChunk / 32; ++i) {
           const int e = lane + 32 * i;
           const bool ok = u < n_valid && e < cw;
           raw[u][i] = mem[ok ? robe_chunk_slot(p, table + u * nblk, x, e0,
@@ -151,7 +117,7 @@ __global__ void __launch_bounds__(32 * kWarps)
         const unsigned long long k0 =
             (unsigned long long)(unsigned int)xs[u] * (unsigned)dim + e0;
 #pragma unroll
-        for (int i = 0; i < kChunk / 32; ++i) {
+        for (int i = 0; i < kRobeChunk / 32; ++i) {
           const int e = lane + 32 * i;
           if (e >= cw) break;
           T v = raw[u][i];
@@ -176,25 +142,13 @@ __global__ void __launch_bounds__(32 * kWarps)
 template <typename T>
 int launch(const void* mem, const void* rows, void* out, int n_rows,
            const RobeParams& p, cudaStream_t stream) {
-  RobePlan q;
-  q.nblk = robe_chunk_blocks(p.dim, p.log2_z);
-  q.table = (int)((sizeof(unsigned) * kItems * q.nblk + 15) & ~15);
-  const int chunk = p.dim < kChunk ? p.dim : kChunk;
-  q.warp_bytes = q.table + 2 * kItems * 4 +
-                 (int)((sizeof(T) * kItems * chunk + 15) & ~15);
-  q.pass_u = 32 / q.nblk;
-  q.pass_m = 32 % q.nblk;
-  q.groups = ((long long)n_rows + kItems - 1) / kItems;
+  RobePlan q = robe_make_plan(p, n_rows, kItems, (int)sizeof(T));
   const size_t smem = (size_t)kWarps * q.warp_bytes;
   auto kernel = robe_lookup_kernel<T>;
-  cudaError_t err = robe_set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   int grid = 0;
-  const long long blocks = (q.groups + kWarps - 1) / kWarps;
-  if ((err = robe_resident_grid(kernel, 32 * kWarps, smem, (int)blocks,
-                                &grid)) != cudaSuccess)
-    return (int)err;
-  q.f_step = (int)(((long long)grid * kWarps * kItems) % p.n_fields);
+  cudaError_t err = robe_plan_grid(kernel, kWarps, kItems, smem, p, &q,
+                                   &grid);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<grid, 32 * kWarps, smem, stream>>>(
       static_cast<const T*>(mem), static_cast<const int*>(rows),
       static_cast<T*>(out), n_rows, p, q);

@@ -69,9 +69,11 @@ class _ServeFused(_ForwardOnly):
 
 class _QrobeLookup(_ForwardOnly):
     @staticmethod
-    def forward(ctx, codes, scale, rows, table_ids, dim, spec, group_log2):
+    def forward(ctx, codes, scale, rows, table_ids, dim, spec, group_log2,
+                delta):
         fn = qrobe_lookup_cuda if _on_cuda(codes) else qrobe_lookup_ref
-        return fn(codes, scale, rows, table_ids, dim, spec, group_log2)
+        return fn(codes, scale, rows, table_ids, dim, spec, group_log2,
+                  delta)
 
 
 class _QrLookup(_ForwardOnly):
@@ -112,13 +114,15 @@ def serve_fused(memory: torch.Tensor, idx: torch.Tensor, bot: torch.Tensor,
 
 
 def qrobe_lookup(codes: torch.Tensor, scale: torch.Tensor, rows: torch.Tensor,
-                 table_ids, dim: int, spec: RobeSpec,
-                 group_log2: int) -> torch.Tensor:
+                 table_ids, dim: int, spec: RobeSpec, group_log2: int, *,
+                 delta: torch.Tensor | None = None) -> torch.Tensor:
     """[B, F] int32 rows -> [B, F, dim] embeddings dequantized from the int8
     ROBE array ``codes`` against per-group ``scale``, in ``scale``'s dtype
-    (one rounding)."""
+    (one rounding).  Given the f32 ``delta`` array, plus its ROBE lookup
+    ``delta[slot] · sign`` rounded into that dtype (the qrobe backend's
+    straight-through term), in the same launch on the card."""
     return _QrobeLookup.apply(codes, scale, rows, tuple(table_ids), dim, spec,
-                              group_log2)
+                              group_log2, delta)
 
 
 def qr_lookup(q_table: torch.Tensor, r_table: torch.Tensor, idx: torch.Tensor,

@@ -3,8 +3,11 @@
 ``qrobe_lookup_cuda`` launches ``csrc/qrobe_lookup.cu`` (the port of
 ``qrobe_lookup_pallas``): [B, F] int32 rows -> [B, F, dim] embeddings,
 int8 codes gathered through the ROBE hash and dequantized against their
-group's scale, in the scale's dtype.  ``qrobe_lookup_ref`` is the plain
-PyTorch version it is held against.
+group's scale, in the scale's dtype.  Given the f32 ``delta`` array, the
+same launch adds the qrobe backend's straight-through term
+``delta[slot] · sign``.  ``qrobe_lookup_ref`` (plus, with ``delta``,
+``robe_lookup_ref`` of ``delta`` and the add) is the plain PyTorch version
+it is held against.
 """
 
 from __future__ import annotations
@@ -20,9 +23,18 @@ __all__ = ["qrobe_lookup_cuda", "qrobe_lookup_ref"]
 
 def qrobe_lookup_cuda(codes: torch.Tensor, scale: torch.Tensor,
                       rows: torch.Tensor, table_ids, dim: int,
-                      spec: RobeSpec, group_log2: int) -> torch.Tensor:
-    """codes [|M|] int8, scale [ceil(|M| / 2^group_log2)], [B, F] int32 rows,
-    all on one CUDA device -> [B, F, dim] in ``scale``'s dtype."""
+                      spec: RobeSpec, group_log2: int,
+                      delta: torch.Tensor | None = None) -> torch.Tensor:
+    """codes [|M|] int8, scale [ceil(|M| / 2^group_log2)], [B, F] int32 rows
+    and, if given, delta [|M|] f32, all on one CUDA device -> [B, F, dim]
+    in ``scale``'s dtype."""
+    if delta is not None and not (
+            delta.device == codes.device and delta.dtype == torch.float32
+            and delta.dim() == 1 and delta.shape[0] == spec.size
+            and delta.is_contiguous()):
+        raise ValueError(f"delta must be a contiguous [{spec.size}] float32 "
+                         f"tensor on {codes.device}, got {delta.dtype} "
+                         f"{tuple(delta.shape)} on {delta.device}")
     if not (codes.is_cuda and scale.device == codes.device
             and rows.device == codes.device):
         raise ValueError("qrobe_lookup_cuda needs codes, scale and rows on "
@@ -57,8 +69,9 @@ def qrobe_lookup_cuda(codes: torch.Tensor, scale: torch.Tensor,
         return out
     coeffs, tid_arr = _build.hash_args(spec, tids)
     err = _build.library().qrobe_lookup_launch(
-        codes.data_ptr(), scale.data_ptr(), rows.data_ptr(), out.data_ptr(),
-        b * f, code, coeffs, tid_arr, f, dim, spec.log2_z,
+        codes.data_ptr(), scale.data_ptr(),
+        None if delta is None else delta.data_ptr(), rows.data_ptr(),
+        out.data_ptr(), b * f, code, coeffs, tid_arr, f, dim, spec.log2_z,
         int(spec.use_sign), group_log2, _build.stream_ptr(codes))
     _build.check("qrobe_lookup", err)
     qrobe_lookup_cuda.launches += 1

@@ -33,10 +33,14 @@ def qrobe_dequant_ref(codes: torch.Tensor, scale: torch.Tensor,
 
 def qrobe_lookup_ref(codes: torch.Tensor, scale: torch.Tensor,
                      rows: torch.Tensor, table_ids, dim: int,
-                     spec: RobeSpec, group_log2: int) -> torch.Tensor:
+                     spec: RobeSpec, group_log2: int,
+                     delta: torch.Tensor | None = None) -> torch.Tensor:
     """[B, F] rows -> [B, F, dim]: int8 codes gathered through the ROBE
     hash, each dequantized in f32 against the scale of its (wrapped) slot's
-    group, times the ±1 sign, rounded ONCE into ``scale.dtype``."""
+    group, times the ±1 sign, rounded ONCE into ``scale.dtype``.  Given the
+    f32 ``delta`` array, the qrobe backend's straight-through term: a ROBE
+    lookup of ``delta`` (``delta[slot] · sign``), rounded into the output's
+    dtype and added, as the JAX backend sums the two."""
     tids = torch.as_tensor(table_ids, dtype=torch.int64,
                            device=rows.device)[None, :]
     slots = robe_slots(spec, tids, rows, dim)            # [B, F, dim] int64
@@ -44,7 +48,11 @@ def qrobe_lookup_ref(codes: torch.Tensor, scale: torch.Tensor,
         scale.to(torch.float32)[slots >> group_log2]
     if spec.use_sign:
         out = out * robe_signs(spec, tids, rows, dim)
-    return out.to(scale.dtype)
+    out = out.to(scale.dtype)
+    if delta is not None:
+        out = out + robe_lookup_ref(delta, rows, table_ids, dim,
+                                    spec).to(out.dtype)
+    return out
 
 
 def dot_interaction_ref(feats: torch.Tensor, self_interaction: bool = False

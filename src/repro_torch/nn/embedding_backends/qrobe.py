@@ -9,7 +9,8 @@ unchanged ROBE hash and dequantizes inside the kernel
 
 The params also hold the f32 ``delta`` carrier of the JAX package's
 straight-through training: zero between training steps, but part of the
-lookup, which adds ``delta[slot] · sign``.  The post-step ``project`` fold
+lookup, which adds ``delta[slot] · sign`` (on the card in the same
+``qrobe_lookup`` launch).  The post-step ``project`` fold
 and the delta's gradient path come with the training slice of the port.
 ``fused_serve`` and ``cacheable_rows`` are declined, as in the JAX
 package: the serve kernel and the hot-row cache speak f32 memories.
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.robe import init_memory
-from repro_torch.kernels.ops import qrobe_lookup, robe_lookup
+from repro_torch.kernels.ops import qrobe_lookup
 from repro_torch.nn.embedding_backends.base import (EmbeddingBackend,
                                                     register_backend)
 from repro_torch.nn.embedding_backends.robe import analytic_max_fetches
@@ -88,14 +89,11 @@ class QRobeBackend(EmbeddingBackend):
     def lookup(self, params, spec, idx, fields=None):
         fields = tuple(fields if fields is not None
                        else range(spec.n_fields))
-        out = qrobe_lookup(params["codes"], params["scale"], idx, fields,
-                           spec.dim, spec.robe, GROUP_LOG2)
-        # the straight-through carrier's term, delta[slot] · sign: exactly
-        # a ROBE lookup of delta, so on the card it runs robe_lookup
-        d = robe_lookup(params["delta"], idx, fields, spec.dim, spec.robe)
-        # in place: ``out`` is this call's own fresh tensor, and the ops are
-        # forward only (the serve path runs under inference_mode)
-        return out.add_(d.to(out.dtype))
+        # with the straight-through carrier's term, delta[slot] · sign,
+        # added in the same launch
+        return qrobe_lookup(params["codes"], params["scale"], idx, fields,
+                            spec.dim, spec.robe, GROUP_LOG2,
+                            delta=params["delta"])
 
     def param_count(self, spec) -> int:
         # the serving model: int8 codes + per-group scales; delta is a

@@ -265,6 +265,30 @@ def test_qrobe_lookup_adds_the_delta_term(use_sign):
     assert not torch.equal(got, zero)
 
 
+def test_qrobe_lookup_is_one_op_call(monkeypatch):
+    """The delta term rides in the qrobe lookup's own op call: the backend
+    makes one ``qrobe_lookup`` call (with ``delta``) and no ROBE lookup."""
+    from repro_torch.kernels import ops as tops
+    from repro_torch.nn.embedding_backends import qrobe as tqrobe
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the qrobe path ran robe_lookup")
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("delta"))
+        return tops.qrobe_lookup(*args, **kwargs)
+    monkeypatch.setattr(tops, "robe_lookup", refuse)
+    monkeypatch.setattr(tqrobe, "qrobe_lookup", counted)
+    assert not hasattr(tqrobe, "robe_lookup")
+    jspec, tspec = _specs("qrobe")
+    tp = _carry(j_get_backend("qrobe").init(jax.random.PRNGKey(3), jspec))
+    out = get_backend("qrobe").lookup(tp, tspec,
+                                      torch.from_numpy(_ids(7, seed=3)))
+    assert out.shape == (7, len(VOCABS), tspec.dim)
+    assert len(calls) == 1 and calls[0] is tp["delta"]
+
+
 def test_lookup_bag_matches_jax():
     """The generic bag pooling over each new backend's lookup."""
     rs = np.random.RandomState(6)

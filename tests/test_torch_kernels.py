@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from repro.core.robe import RobeSpec as JRobeSpec
+from repro.core.robe import robe_signs as jrobe_signs
+from repro.core.robe import robe_slots as jrobe_slots
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.nn.embedding_backends.hashed import qr_layout
@@ -250,6 +252,48 @@ def test_qrobe_lookup_matches_pallas_and_ref(b, dim, z, use_sign, dt):
                                 GROUP_LOG2)
     np.testing.assert_array_equal(_np(got), _np(kernel))
     np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize("b,dim,z", [
+    (13, 24, 16),         # Z < d, d not a multiple of Z's span
+    (13, 16, 16),         # Z = d
+    (7, 8, 32),           # Z > d: rows share blocks
+    (11, 40, 1),          # Z = 1: every element hashed alone
+    (5, 130, 32),         # a second chunk of 2 elements
+])
+@pytest.mark.parametrize("use_sign", (False, True))
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_qrobe_lookup_with_delta_matches_jax_sum(b, dim, z, use_sign, dt):
+    """The op's delta term equals the JAX backend's two-op sum: the qrobe
+    lookup, plus ``take(delta, robe_slots) · robe_signs`` rounded into the
+    output's dtype, added in it.  |M| = 4000 leaves a partial last group."""
+    size, f = 4000, len(VOCABS)
+    kw = dict(size=size, block_size=z, seed=5, use_sign=use_sign)
+    js, ts = JRobeSpec(**kw), TRobeSpec(**kw)
+    rs = np.random.RandomState(b * 3 + dim + z)
+    codes = rs.randint(-127, 128, size).astype(np.int8)
+    n_grp = -(-size // (1 << GROUP_LOG2))
+    scale = (np.abs(rs.randn(n_grp)) * 0.05 + 0.01).astype(np.float32)
+    delta = (rs.randn(size) * 0.02).astype(np.float32)
+    rows = _ids(b, VOCABS, seed=b + 1)
+    rows[0] = [2 ** 31 - 1, 2 ** 31 - 2, 2 ** 30]     # x*d past 2^32
+    tids = tuple(range(f))
+    got = tops.qrobe_lookup(_t(codes), _t(scale, dt), _t(rows), tids, dim,
+                            ts, GROUP_LOG2, delta=_t(delta))
+    assert got.shape == (b, f, dim) and got.dtype == TDT[dt]
+    jt = jnp.arange(f, dtype=jnp.uint32)[None, :]
+    jr = jnp.asarray(rows)
+    out = jref.qrobe_lookup_ref(jnp.asarray(codes), jnp.asarray(scale, JDT[dt]),
+                                jr, jnp.arange(f, dtype=jnp.uint32), dim, js,
+                                GROUP_LOG2)
+    d = jnp.take(jnp.asarray(delta),
+                 jrobe_slots(js, jt, jr, dim).astype(jnp.int32), axis=0)
+    if use_sign:
+        d = d * jrobe_signs(js, jt, jr, dim)
+    np.testing.assert_array_equal(_np(got), _np(out + d.astype(out.dtype)))
+    without = tops.qrobe_lookup(_t(codes), _t(scale, dt), _t(rows), tids, dim,
+                                ts, GROUP_LOG2)
+    assert not torch.equal(got, without)
 
 
 def test_qrobe_dequant_ref_matches_jax():
@@ -526,6 +570,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tk.qrobe_lookup_cuda(codes, torch.ones(16), rows, (0, 1), 16, ts,
                              GROUP_LOG2)
     with pytest.raises(ValueError, match="CUDA"):
+        tk.qrobe_lookup_cuda(codes, torch.ones(16), rows, (0, 1), 16, ts,
+                             GROUP_LOG2, delta=torch.zeros(4096))
+    # a delta that is not [|M|] f32, contiguous, on the codes' device
+    for bad in (torch.zeros(4096, dtype=torch.float64),
+                torch.zeros(4096, dtype=torch.bfloat16),
+                torch.zeros(4095), torch.zeros(4096, 1),
+                torch.zeros(8192)[::2],
+                torch.zeros(4096, device="meta")):
+        with pytest.raises(ValueError, match="delta must be"):
+            tk.qrobe_lookup_cuda(codes, torch.ones(16), rows, (0, 1), 16, ts,
+                                 GROUP_LOG2, delta=bad)
+    with pytest.raises(ValueError, match="CUDA"):
         tk.qr_lookup_cuda(torch.randn(5, 8), torch.randn(8, 8), rows, (0, 3),
                           (0, 4), 4)
     cores = (torch.randn(4, 2, 3), torch.randn(4, 3, 2, 3),
@@ -537,6 +593,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 def test_kernel_sources_and_bindings_agree():
     """Each launcher the Python side binds is defined in csrc/ with as many
     parameters as its ctypes signature has."""
+    import ctypes
     import re
     from repro_torch.kernels import _build
     text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
@@ -544,7 +601,15 @@ def test_kernel_sources_and_bindings_agree():
     assert set(_build.SIGNATURES) == {
         k.__name__.removesuffix("_cuda") + "_launch"
         for k in tk.CUDA_KERNELS}
+    params = {}
     for name, argtypes in _build.SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
         assert m, name
-        assert len(m.group(1).split(",")) == len(argtypes), name
+        params[name] = [" ".join(p.split()) for p in m.group(1).split(",")]
+        assert len(params[name]) == len(argtypes), name
+    # qrobe's optional delta: a pointer (c_void_p, so None passes null)
+    # after scale, where the wrapper passes it
+    q = params["qrobe_lookup_launch"]
+    assert q[1:4] == ["const void* scale", "const void* delta",
+                      "const void* rows"], q
+    assert _build.SIGNATURES["qrobe_lookup_launch"][2] is ctypes.c_void_p

@@ -1,8 +1,8 @@
 """Split the time of the port's redesigned kernels into their parts.
 
-    python3 tools/kernel_split.py [--only di,sf,tt,rl] [CSRC_DIR ...]
+    python3 tools/kernel_split.py [--only di,sf,tt,rl,qb] [CSRC_DIR ...]
 
-Builds variants of four kernels from the sources in each CSRC_DIR (by
+Builds variants of five kernels from the sources in each CSRC_DIR (by
 default ``src/repro_torch/kernels/csrc``; an older tree works too, e.g.
 from ``git archive <commit> src/repro_torch/kernels/csrc | tar -x -C
 build/old``), each as it is and with one part taken out:
@@ -17,16 +17,19 @@ build/old``), each as it is and with one part taken out:
   streaming (evict-first) hint, plain stores instead;
 - ``robe_lookup``: the block hash replaced by a constant (each slot is the
   element's offset in its block, so the hash goes and every gather hits
-  L1); stores only; plain stores instead of streaming ones, where used.
+  L1); stores only; plain stores instead of streaming ones, where used;
+- ``qrobe_lookup``: the same three, each timed without and, where the
+  launcher takes it, with the ``delta`` operand.
 
 Each variant is compiled with nvcc into its own library under
 ``build/kernel_split/`` (all at once) and timed at B=512 and B=262144 on
-the ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32, |M| = 26,135,627; TT
-factors (589, 589, 589), dims (2, 8, 8), rank 8) with CUDA events (median
+the ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32, |M| = 26,135,627; int8
+codes with one f32 scale per 256 slots; TT factors (589, 589, 589), dims
+(2, 8, 8), rank 8) with CUDA events (median
 of 21 runs of 8 back-to-back launches), beside ``torch.bmm`` on the same
 [B, 27, 128] input.  Several CSRC_DIRs are timed in one process, in turns;
 ``--only`` keeps the named kernels (di = dot_interaction, sf =
-serve_fused, tt = tt_lookup, rl = robe_lookup).
+serve_fused, tt = tt_lookup, rl = robe_lookup, qb = qrobe_lookup).
 Prints one JSON object, the card's name and power limit included.  The
 variants are made at run time and never kept in the repository.  Needs
 one CUDA card and nvcc.
@@ -121,6 +124,21 @@ ROBE_BLOCK = {
                    "from_f32<T>(0.f)", 1)],
     "plainstore": PLAIN,
 }
+# qrobe_lookup's first design, one warp per item
+QROBE_WARP = {
+    "nohash": [(r"robe_slot\(p, t, k\)",
+                "(unsigned int)(k & ((1ULL << p.log2_z) - 1ULL))", 1)],
+    "storeonly": [(r"const unsigned int slot = robe_slot\(p, t, k\);\s*"
+                   r"float v = [^;]*;", "float v = 0.f;", 1)],
+}
+# qrobe_lookup on the block-hash table: the table fill, and a run's
+# gathers of codes, scales and delta
+QROBE_BLOCK = {
+    "nohash": [(r"robe_chunk_hash\([^;]*\);", "0u;", 1)],
+    "storeonly": [(r"qrobe_gather<T, kDelta>\(p, [^;]*\);",
+                   "runs[u][i] = QRun{};", 1)],
+    "plainstore": PLAIN,
+}
 #: variant name -> (source, launcher, {generation: transforms} or flags)
 VARIANTS = {
     "di": ("dot_interaction.cu", {}),
@@ -138,9 +156,15 @@ VARIANTS = {
     "rl_nohash": ("robe_lookup.cu", {"part": "nohash"}),
     "rl_storeonly": ("robe_lookup.cu", {"part": "storeonly"}),
     "rl_plainstore": ("robe_lookup.cu", {"part": "plainstore"}),
+    "qb": ("qrobe_lookup.cu", {}),
+    "qb_nohash": ("qrobe_lookup.cu", {"part": "nohash"}),
+    "qb_storeonly": ("qrobe_lookup.cu", {"part": "storeonly"}),
+    "qb_plainstore": ("qrobe_lookup.cu", {"part": "plainstore"}),
 }
 LAUNCHERS = {"di": "dot_interaction_launch", "sf": "serve_fused_launch",
-             "tt": "tt_lookup_launch", "rl": "robe_lookup_launch"}
+             "tt": "tt_lookup_launch", "rl": "robe_lookup_launch",
+             "qb": "qrobe_lookup_launch"}
+QROBE_GROUP_LOG2 = 8
 
 
 def is_old(csrc: Path) -> bool:
@@ -172,10 +196,18 @@ def variant(csrc: Path, tag: str, name: str, src: str, nogram=False,
     if part:
         if src == "tt_lookup.cu":
             rules = TT_RANKED if "tt_chain<" in text else TT_WARP
+        elif src == "qrobe_lookup.cu":
+            rules = QROBE_BLOCK if "qrobe_gather" in text else QROBE_WARP
         else:
             rules = ROBE_BLOCK if "robe_chunk_slot" in text else ROBE_WARP
         if part not in rules:       # a part this design does not have
             return None
+        if part == "plainstore" and "__stcs" not in text:
+            # the streaming stores live in the shared header: inline it
+            text = text.replace(
+                '#include "robe_common.cuh"',
+                (csrc / "robe_common.cuh").read_text().replace(
+                    "#pragma once\n", ""))
         text = subst(text, rules[part], name)
     out = OUT / tag / (name + ".cu")
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -223,8 +255,10 @@ def hash_coeffs(spec, tids, old: bool):
 
 
 def load(trees: dict, only) -> dict:
-    """{tag: {variant: (launcher, takes no instance argument)}}: every
-    variant of every tree written first, then all built at once."""
+    """{tag: {variant: (launcher, an older launcher)}}: every variant of
+    every tree written first, then all built at once.  An older launcher
+    lacks one argument: tt_lookup's first took no instance, qrobe_lookup's
+    before the delta operand no delta."""
     names = [k for k in VARIANTS if not only or k.split("_")[0] in only]
     cus = {(tag, k): variant(csrc, tag, k, VARIANTS[k][0], **VARIANTS[k][1])
            for tag, csrc in trees.items() for k in names}
@@ -240,12 +274,14 @@ def load(trees: dict, only) -> dict:
         name = LAUNCHERS[k.split("_")[0]]
         fn = getattr(ctypes.CDLL(str(lib)), name)
         argtypes = _build.SIGNATURES[name]
-        # the first tt launcher took no instance argument
-        n = n_params((trees[tag] / VARIANTS[k][0]).read_text(), name)
-        fn.argtypes = argtypes[:n - 1] + argtypes[-1:] \
-            if n < len(argtypes) else argtypes
+        older = n_params((trees[tag] / VARIANTS[k][0]).read_text(),
+                         name) < len(argtypes)
+        if older:
+            drop = 2 if k.startswith("qb") else len(argtypes) - 2
+            argtypes = argtypes[:drop] + argtypes[drop + 1:]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fns[tag][k] = (fn, n < len(argtypes))
+        fns[tag][k] = (fn, older)
     return fns
 
 
@@ -283,6 +319,11 @@ def main() -> int:
     cores = [0.3 * torch.randn(shape, generator=gen, device=dev) for shape in
              ((n1, d1, r), (n2, r, d2, r), (n3, r, d3))]
     tt_inst = tt_plan(d1, d2, d3, r, 4, cores)[0]
+    codes = torch.randint(-127, 128, (SIZE,), dtype=torch.int8, generator=gen,
+                          device=dev)
+    qscale = 0.01 + 0.05 * torch.rand(-(-SIZE >> QROBE_GROUP_LOG2),
+                                      generator=gen, device=dev)
+    delta = torch.zeros(SIZE, device=dev)
     off_arr = _build.field_args(tuple(tt_off))
     for b, n_in in ((512, 8), (262144, 1)):
         stream = CtrStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
@@ -299,7 +340,7 @@ def main() -> int:
             for tag, (csrc, old, fns) in trees.items():
                 if k not in fns:
                     continue
-                fn, no_inst = fns[k]
+                fn, older = fns[k]
                 key = f"{tag}_{k}"
                 if k.startswith("di"):
                     res[f"{key}_{b}"] = device_ms(
@@ -307,13 +348,26 @@ def main() -> int:
                                             F + 1, D, 0, 0, s),
                         [(x,) for x in feats])
                 elif k.startswith("tt"):
-                    extra = () if no_inst else (tt_inst,)
+                    extra = () if older else (tt_inst,)
                     res[f"{key}_{b}"] = device_ms(
                         lambda x, fn=fn, extra=extra: fn(
                             *(c.data_ptr() for c in cores), x.data_ptr(),
                             emb.data_ptr(), b * F, 0, off_arr, F, n2, n3, d1,
                             d2, d3, r, *extra, s),
                         [(x,) for x in rows])
+                elif k.startswith("qb"):
+                    co, ta = hash_coeffs(spec, tids, old)
+                    for dl in (None,) if older else (None, delta):
+                        extra = () if older else \
+                            (None if dl is None else dl.data_ptr(),)
+                        sfx = "" if dl is None else "_delta"
+                        res[f"{key}{sfx}_{b}"] = device_ms(
+                            lambda x, fn=fn, co=co, ta=ta, extra=extra: fn(
+                                codes.data_ptr(), qscale.data_ptr(), *extra,
+                                x.data_ptr(), emb.data_ptr(), b * F, 0, co,
+                                ta, F, D, spec.log2_z, 0, QROBE_GROUP_LOG2,
+                                s),
+                            [(x,) for x in rows])
                 elif k.startswith("rl"):
                     co, ta = hash_coeffs(spec, tids, old)
                     res[f"{key}_{b}"] = device_ms(
