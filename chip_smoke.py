@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serve path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serve and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -10,8 +10,8 @@ non-zero on failure:
 
 1. the card: ``nvidia-smi``'s name and power limit; the kernels' build
    (``nvcc`` for sm_90a, from ``src/repro_torch/kernels/csrc`` alone);
-2. each of the six Hopper kernels against its plain PyTorch version on the
-   card, at the paper's ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32,
+2. each of the eight Hopper kernels against its plain PyTorch version on
+   the card, at the paper's ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32,
    |M| = 26,135,627 slots; QR m = 8,192; TT factors (589, 589, 589), dims
    (2, 8, 8), rank 8): ``robe_lookup`` and ``qrobe_lookup`` exactly
    (torch.equal), ``qr_lookup`` exactly in f32 and within 1e-2 in bf16,
@@ -28,7 +28,19 @@ non-zero on failure:
    at the ragged shapes of its register tiling (F in 1..64, D in 1..130,
    B in 1..4099, with and without the diagonal) and ``serve_fused`` in the
    hash's general regime (Z = 16 with d = 24 and 40, bags of 3 with -1
-   pads and an empty bag);
+   pads and an empty bag); the two backward kernels: ``robe_lookup_bwd``
+   (the scatter-add into M, by f32 atomics in no fixed order) within
+   ``1e-5 · A + 1e-7`` in f32 and ``1e-2 · A`` in bf16 of each slot, ``A``
+   the same scatter of ``|g|``, at every ``ROBE_REGIMES`` (d, Z), f32 and
+   bf16, the sign on and off, B in 1, 509, 512, on a B = 65,536 zipf batch
+   from ``CtrStream`` (head rows repeat thousands of times), on rows that
+   cross the wrap at |M|, on a cotangent with the strides autograd hands
+   over, and on the quickstart's 18,400-slot array (d = 16, Z = 32) under
+   a batch of 1,024 of its stream; ``dot_interaction_bwd`` at full width
+   (F = 27, D = 128) at B = 512, 509 and the training batch 65,536, at
+   the quickstart's (B = 1,024, F = 5, D = 16) and at the forward's ragged
+   shapes, with and without the diagonal, within rtol = atol = 1e-5 in f32
+   and 1e-2 in bf16;
 3. the main paths at full width, each answering four padded batches of
    512 requests (one with n_valid < 512) with every kernel's launch count
    set to 0 before the path and read after it:
@@ -40,15 +52,32 @@ non-zero on failure:
    launch); the scores must be finite, the two robe paths must agree within
    rtol = atol = 1e-4, and every path must agree as closely with the same
    entry point run on the CPU (the plain versions);
+   then the training path, through ``train_loop.build_train_step``,
+   ``init_state`` and ``run`` with ``models.recsys.loss_fn``: (a) the
+   quickstart config (4 fields, dim 16, 100x ROBE, batch 1024), 400
+   adagrad steps (lr 0.08) from the port's own init (seed 0) on the card,
+   each step's loss within 2e-3 of the CPU step's from the same state and
+   each param leaf's updates within 1e-3 of their norm over the run, then
+   the CPU's own 400 steps, the two held-out AUCs (steps 5000-5007)
+   within 2e-3; (b) full ``dlrm-criteo-tb`` width: three SGD
+   steps at B = 512, params after each within rtol = atol = 1e-4 of the
+   CPU run and each leaf's change since the start within 1e-3 of its
+   norm, then five adagrad steps at B = 65,536 with finite losses and
+   exactly one launch a step of ``robe_lookup``, ``robe_lookup_bwd``,
+   ``dot_interaction`` and ``dot_interaction_bwd`` and none of the others;
+   every run with no restart and no non-finite loss;
 4. times with CUDA events (median of 21 repetitions, launches queued behind
    a sleep kernel so the host does not starve the card): each kernel at
    B=512 and B=262144 beside its bound (``qrobe_lookup`` also with the
    params' ``delta``, whose bound adds a 4-byte read per touched slot),
-   its plain version at B=512,
-   ``torch.bmm`` as the library yardstick of ``dot_interaction``, and
-   ``score`` end to end for every path; plus a ``torch.profiler``
-   breakdown of ``score`` at B=262144 by device kernel for every path,
-   with the card's busy share of the window;
+   the backward kernels at B=512 and B=65536 (the training batch), each
+   plain version at B=512,
+   ``torch.bmm`` as the library yardstick of ``dot_interaction`` and of its
+   backward, and ``score`` end to end for every path; plus a
+   ``torch.profiler`` breakdown of ``score`` at B=262144 by device kernel
+   for every path, with the card's busy share of the window; and one
+   full-width adagrad training step at B=65536 (host clock, median) with
+   its own breakdown;
 5. one JSON line of kernel numbers, then, last, the ok line.
 """
 
@@ -74,24 +103,35 @@ from repro_torch.core.robe import (init_memory,
                                    robe_slots)
 from repro_torch.data import (CtrDataConfig, CtrStream,
                               RequestStream)
-from repro_torch.kernels import (_build, dot_interaction_cuda,
-                                 launch_counts, qr_lookup_cuda,
-                                 qrobe_lookup_cuda, reset_launches,
+from repro_torch.kernels import (_build, dot_interaction_bwd_cuda,
+                                 dot_interaction_cuda, launch_counts,
+                                 qr_lookup_cuda, qrobe_lookup_cuda,
+                                 reset_launches, robe_lookup_bwd_cuda,
                                  robe_lookup_cuda, serve_fused_cuda,
                                  tt_lookup_cuda)
-from repro_torch.kernels.ref import (dot_interaction_ref, qr_indices,
-                                     qr_lookup_ref, qrobe_lookup_ref,
+from repro_torch.kernels.ref import (dot_interaction_bwd_ref,
+                                     dot_interaction_ref, interaction_sym,
+                                     qr_indices, qr_lookup_ref,
+                                     qrobe_lookup_ref, robe_lookup_bwd_ref,
                                      robe_lookup_ref, serve_fused_ref,
                                      tt_indices, tt_lookup_ref)
+from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
+                                       loss_fn)
 from repro_torch.nn.embedding_backends.hashed import (default_buckets,
                                                       qr_layout)
 from repro_torch.nn.embedding_backends.qrobe import GROUP_LOG2
 from repro_torch.nn.embedding_backends.tt import factor_dim, factor_rows
 from repro_torch.serve.server import EmbeddingServer, ServerConfig
+from repro_torch.train.metrics import auc
+from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+from repro_torch.train.train_loop import (TrainConfig, build_train_step,
+                                          init_state, run)
+from repro_torch.tree import leaves, tree_map, unflatten
 
 SEED = 0
 F, D = 26, 128
 B_P99, B_BULK = 512, 262144           # RECSYS_SHAPES serve_p99 / serve_bulk
+B_TRAIN = 65536                       # RECSYS_SHAPES train_batch
 #: the compressed substrates served beside robe, and the kernel each
 #: substrate's lookup runs
 SUBSTRATES = {"qrobe": "qrobe_lookup", "hashed": "qr_lookup",
@@ -110,6 +150,27 @@ ROBE_REGIMES = ((24, 16), (16, 16), (8, 32), (40, 1), (D, 32))
 TT_SHAPES = ((24, 4), (18, 8), (16, 8), (24, 3))
 PHASE2_BATCHES = (1, 509, 512)
 SCORE_TOL = 1e-4
+#: the scatter's bound: |got - want| <= rel · A + abs slot by slot, A the
+#: scatter of |g| (a sum of aliased terms in no fixed order)
+SCATTER_TOL = {torch.float32: (1e-5, 1e-7), torch.bfloat16: (1e-2, 0.0)}
+#: the quickstart config of examples/quickstart.py (4 fields, dim 16, 100x
+#: ROBE, batch 1024, adagrad lr 0.08, 400 steps) and its bounds, card
+#: against CPU: every step's loss from the same state, the held-out AUC
+QS_VOCABS = (40_000, 10_000, 60_000, 5_000)
+QS_DIM, QS_BATCH = 16, 1024
+QS_STEPS, QS_LOSS_TOL, QS_AUC_TOL = 400, 2e-3, 2e-3
+TRAIN_TOL = 1e-4                      # full-width SGD params, card vs CPU
+#: each param leaf's updates, card against the CPU (``UpdateErr``:
+#: sqrt(Σ|Δcard - Δcpu|² / Σ|Δcpu|²)): the quickstart's over its 400
+#: steps from the same state, the full-width SGD run's since its start.
+#: Summation order alone reads 2.4e-6 (the port against the JAX package
+#: on the CPU, tests/test_torch_train.py) and, card against CPU on an
+#: NVIDIA H100 80GB HBM3 at 700 W, up to 7.4e-7 on the quickstart and
+#: 3.6e-5 after three free SGD steps at full width; a zero gradient reads 1
+UPDATE_TOL = 1e-3
+#: the kernels of a training step, each launched once a step
+TRAIN_KERNELS = ("robe_lookup", "robe_lookup_bwd", "dot_interaction",
+                 "dot_interaction_bwd")
 REPS = 21
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
 #: the H100 SXM data sheet's peaks
@@ -133,6 +194,12 @@ KERNELS = {
     "tt_lookup": dict(
         source="src/repro_torch/kernels/csrc/tt_lookup.cu",
         replaces="src/repro/kernels/tt_lookup.py:57"),
+    "robe_lookup_bwd": dict(
+        source="src/repro_torch/kernels/csrc/robe_lookup_bwd.cu",
+        replaces="src/repro/kernels/ops.py:67"),
+    "dot_interaction_bwd": dict(
+        source="src/repro_torch/kernels/csrc/dot_interaction_bwd.cu",
+        replaces="src/repro/kernels/ops.py:159"),
 }
 
 
@@ -381,7 +448,106 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
                                r_off, m),
                 tt_lookup_cuda(*wide, empty, offsets, factors, D)):
         require(got.shape == (0, F, D), f"B=0 gave {tuple(got.shape)}")
+    err["robe_lookup_bwd"]["over_a"] = check_backwards(
+        gen, spec, dev, robe_rows, di_cases, record)
     return err
+
+
+def scatter_err(got, want, a, dtype) -> float:
+    """Fails unless every slot is within the scatter's bound; returns the
+    largest |got - want| / A."""
+    rel, abs_ = SCATTER_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    a = a.float()
+    bad = int((err > rel * a + abs_).sum())
+    require(bad == 0, f"{bad} slots outside the scatter bound: max err "
+            f"{float(err.max())}")
+    return float((err / a.clamp_min(1e-30)).max())
+
+
+def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
+    """Phase 2 for the two backward kernels, beside their plain versions;
+    returns the scatter's largest |error| / A per dtype."""
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def robe_case(rows, g, sp, what):
+        tids = tuple(range(rows.shape[1]))
+        got = robe_lookup_bwd_cuda(g, rows, tids, g.shape[2], sp)
+        want = robe_lookup_bwd_ref(g, rows, tids, g.shape[2], sp)
+        a = robe_lookup_bwd_ref(g.abs(), rows, tids, g.shape[2],
+                                dataclasses.replace(sp, use_sign=False))
+        require(got.shape == (sp.size,) and got.dtype == g.dtype,
+                f"robe_lookup_bwd {what}: {got.dtype} {tuple(got.shape)}")
+        try:
+            key = str(g.dtype).removeprefix("torch.")
+            worst[key] = max(worst[key], scatter_err(got, want, a, g.dtype))
+        except SmokeFailure as e:
+            raise SmokeFailure(f"robe_lookup_bwd {what}: {e}") from None
+        record("robe_lookup_bwd", got, want)
+
+    # every regime of the block hash, both dtypes, the sign on and off
+    for (dim, z), dt, sign, b in itertools.product(
+            ROBE_REGIMES, (torch.float32, torch.bfloat16), (False, True),
+            PHASE2_BATCHES):
+        sp = dataclasses.replace(spec, block_size=z, use_sign=sign)
+        g = torch.randn((b, F, dim), generator=gen, device=dev).to(dt)
+        robe_case(robe_rows[:b], g, sp,
+                  f"B={b} Z={z} d={dim} sign={sign} {dt}")
+    # a zipf batch of the training shape: head rows repeat thousands of
+    # times, so their slots take contended atomics; rows that cross the
+    # wrap at |M|; a cotangent at the strides of the model's concat
+    zipf = bulk_inputs(gen, dev, B_TRAIN, 1)[0]
+    wrap = wrap_rows(gen, spec, dev)
+    wide = torch.randn((wrap.shape[0], F + 1, D), generator=gen, device=dev)
+    for dt, sign in itertools.product((torch.float32, torch.bfloat16),
+                                      (False, True)):
+        sp = dataclasses.replace(spec, use_sign=sign)
+        g = torch.randn((B_TRAIN, F, D), generator=gen, device=dev).to(dt)
+        robe_case(zipf, g, sp, f"zipf B={B_TRAIN} sign={sign} {dt}")
+        robe_case(wrap, wide[:, 1:].to(dt), sp,
+                  f"wrap rows, strided g, sign={sign} {dt}")
+    # the quickstart's array (18,400 slots, d = 16, Z = 32) under a batch
+    # of its own stream: 65,536 elements a step on so few slots contend
+    qs_rows = quickstart_rows(dev)
+    qs_spec = quickstart_config().embedding_spec().robe
+    for dt, sign in itertools.product((torch.float32, torch.bfloat16),
+                                      (False, True)):
+        g = torch.randn(tuple(qs_rows.shape) + (QS_DIM,), generator=gen,
+                        device=dev).to(dt)
+        robe_case(qs_rows, g, dataclasses.replace(qs_spec, use_sign=sign),
+                  f"quickstart B={qs_rows.shape[0]} sign={sign} {dt}")
+    del zipf, g
+    torch.cuda.synchronize()
+
+    # the forward's shapes, the training batch at full width (the grid
+    # stride loop takes many samples a block) and the quickstart's; at
+    # full width also a cotangent with the row stride of the top MLP's
+    # input (the concat of [bot, interaction])
+    di_cases = list(di_cases) + [(B_TRAIN, F + 1, D, 1.0),
+                                 (QS_BATCH, len(QS_VOCABS) + 1, QS_DIM, 1.0)]
+    for b, f, d, scale in di_cases:
+        p = f * (f - 1) // 2
+        for dtype, self_int in itertools.product(
+                (torch.float32, torch.bfloat16), (False, True)):
+            feats = (scale * torch.randn((b, f, d), generator=gen,
+                                         device=dev)).to(dtype)
+            n = p + f if self_int else p
+            g = torch.randn((b, D + n), generator=gen,
+                            device=dev).to(dtype)[:, D:]
+            for gg in ((g, g.contiguous()) if (f, d) == (F + 1, D)
+                       else (g.contiguous(),)):
+                got = dot_interaction_bwd_cuda(gg, feats, self_int)
+                want = dot_interaction_bwd_ref(gg, feats, self_int)
+                tol = TOL[dtype]
+                require(got.shape == feats.shape and got.dtype == dtype
+                        and torch.allclose(got.float(), want.float(),
+                                           rtol=tol, atol=tol),
+                        f"dot_interaction_bwd B={b} F={f} D={d} {dtype} "
+                        f"self={self_int} stride={gg.stride(0)}: max err "
+                        f"{max_err(got, want)}")
+                record("dot_interaction_bwd", got, want)
+    torch.cuda.synchronize()
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -501,6 +667,251 @@ def substrate_paths(subs) -> dict:
         print(f"{kind} path: 4 batches of {B_P99}, n_valid "
               f"{[n for _, n in batches]}; card vs CPU max diff {diff}")
     return counts
+
+
+def quickstart_config() -> RecsysConfig:
+    return RecsysConfig(
+        name="quickstart", arch="dlrm", n_dense=4, bot_mlp=(32, QS_DIM),
+        top_mlp=(32, 1), embed_dim=QS_DIM, vocab_sizes=QS_VOCABS,
+        embedding="robe", robe_size=sum(QS_VOCABS) * QS_DIM // 100,
+        robe_block=32)
+
+
+def quickstart_stream() -> CtrStream:
+    return CtrStream(CtrDataConfig(vocab_sizes=QS_VOCABS, n_dense=4,
+                                   batch_size=QS_BATCH))
+
+
+def quickstart_rows(dev) -> torch.Tensor:
+    """The sparse ids [QS_BATCH, 4] of the quickstart's first batch."""
+    return torch.from_numpy(quickstart_stream().batch_at(0)["sparse"]).to(dev)
+
+
+def train_run(cfg: RecsysConfig, params, opt: OptimizerConfig, batch_at,
+              n_steps: int, step_hook=None):
+    """``run`` of ``n_steps`` from ``params`` (on their device) through
+    the port's entry points; ``step_hook(step_fn)`` may wrap the step."""
+    optimizer = make_optimizer(opt)
+    # no restarts: a step that raises on the card fails the smoke
+    tc = TrainConfig(max_restarts=0)
+    step_fn = build_train_step(lambda p, b: loss_fn(p, cfg, b), optimizer,
+                               tc)
+    if step_hook is not None:
+        step_fn = step_hook(step_fn)
+    rep = run(init_state(params, optimizer, tc), step_fn, batch_at,
+              n_steps, tc)
+    require(rep.restarts == 0 and rep.nan_events == 0 and
+            rep.steps_done == n_steps,
+            f"{cfg.name} {opt.kind} on {leaves(params)[0].device}: "
+            f"{rep.steps_done} steps, {rep.restarts} restarts, "
+            f"{rep.nan_events} non-finite losses")
+    return rep
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Names of ``tree``'s leaves in ``leaves`` order ("top/0/w")."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for k, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+class UpdateErr:
+    """Per param leaf, the card's update (new - old) against the CPU's:
+    ``rel()`` gives sqrt(Σ|Δcard - Δcpu|² / Σ|Δcpu|²) over every ``add``.
+    A backward that left a leaf's gradient zero reads 1 there; summation
+    order alone reads ~1e-7."""
+
+    def __init__(self, params):
+        self.names = leaf_names(params)
+        self.diff = [0.0] * len(self.names)
+        self.norm = [0.0] * len(self.names)
+
+    def add(self, old, card, cpu) -> None:
+        for i, (o, c, h) in enumerate(zip(leaves(old), leaves(card),
+                                          leaves(cpu))):
+            want = h.double() - o.double()
+            self.diff[i] += float(((c.cpu().double() - o.double())
+                                   - want).square().sum())
+            self.norm[i] += float(want.square().sum())
+
+    def rel(self) -> dict:
+        return {n: (d / w) ** 0.5 if w > 0 else (0.0 if d == 0 else 1.0)
+                for n, d, w in zip(self.names, self.diff, self.norm)}
+
+
+def quickstart_path() -> dict:
+    """(a): examples/quickstart.py's run on the card from the port's own
+    init (seed 0), each step shadowed by the CPU step from the same state;
+    then the CPU's own run from the same params.
+
+    Every card step's loss is held to the CPU step's from the same state,
+    and so is its update of every param leaf (``UpdateErr`` over the 400
+    steps, within UPDATE_TOL): that reading sees the card's backward
+    and optimizer, which the loss of a step does not.
+    Two free-running trajectories are not held to each other step by step:
+    any change of summation order (the scatter's atomics, cuBLAS against
+    the CPU's GEMMs) can flip a ReLU whose input is within rounding of 0,
+    which changes a rarely seen ROBE slot's gradient by a large fraction
+    and so, after adagrad's per-slot scaling, its update by up to ±lr; the
+    runs then drift apart by 1e-3 and more.  Their held-out AUCs are held
+    to each other, and the free runs' largest loss difference is reported.
+    """
+    cfg = quickstart_config()
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, "cpu")
+    stream = quickstart_stream()
+    opt = OptimizerConfig(kind="adagrad", lr=0.08)
+    cpu_step = build_train_step(lambda p, b: loss_fn(p, cfg, b),
+                                make_optimizer(opt), TrainConfig())
+    step_diff, card_s = [], [0.0]
+    upd = UpdateErr(params)
+
+    def shadow(step_fn):
+        def step(state, batch):
+            old = to_device(state, "cpu")
+            want, wm = cpu_step(old, to_device(batch, "cpu"))
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            card_s[0] += time.perf_counter() - t0
+            step_diff.append(abs(loss - float(wm["loss"])))
+            upd.add(old["params"], state["params"], want["params"])
+            return state, m
+        return step
+
+    def held_out_auc(p, where) -> float:
+        scores, labels = [], []
+        with torch.no_grad():
+            for s in range(5000, 5008):
+                b = stream.batch_at(s)
+                batch = {k: torch.from_numpy(v).to(where)
+                         for k, v in b.items()}
+                scores.append(forward(p, cfg, batch).cpu().numpy())
+                labels.append(b["label"])
+        return auc(np.concatenate(labels), np.concatenate(scores))
+
+    reset_launches()
+    card = train_run(cfg, to_device(params, "cuda"), opt, stream.batch_at,
+                     QS_STEPS, shadow)
+    torch.cuda.synchronize()
+    c = launch_counts()
+    t0 = time.perf_counter()
+    cpu = train_run(cfg, params, opt, stream.batch_at, QS_STEPS)
+    cpu_s = time.perf_counter() - t0
+    losses = np.asarray(card.losses)
+    free = np.abs(losses - np.asarray(cpu.losses))
+    auc_card = held_out_auc(card.state["params"], "cuda")
+    auc_cpu = held_out_auc(cpu.state["params"], "cpu")
+    require(len(losses) == QS_STEPS and np.isfinite(losses).all() and
+            len(step_diff) == QS_STEPS,
+            "quickstart: non-finite or missing losses on the card")
+    require(all(n == (QS_STEPS if k in TRAIN_KERNELS else 0)
+                for k, n in c.items()),
+            f"quickstart on the card launched {c}")
+    require(max(step_diff) <= QS_LOSS_TOL,
+            f"quickstart: a card step's loss differs from the CPU step's "
+            f"from the same state by {max(step_diff)} at step "
+            f"{int(np.argmax(step_diff))}")
+    rel = upd.rel()
+    require(max(rel.values()) <= UPDATE_TOL,
+            f"quickstart: the card's updates differ from the CPU's from the "
+            f"same state by {rel} (relative norm per leaf)")
+    require(abs(auc_card - auc_cpu) <= QS_AUC_TOL,
+            f"quickstart: held-out AUC {auc_card} on the card, {auc_cpu} "
+            f"on the CPU")
+    res = {"loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+           "loss_last_cpu": float(cpu.losses[-1]),
+           "max_step_loss_diff": max(step_diff), "update_rel_err": rel,
+           "max_free_loss_diff": float(free.max()),
+           "free_diff_step": int(free.argmax()),
+           "auc": auc_card, "auc_cpu": auc_cpu,
+           "card_steps_s": card_s[0], "cpu_run_s": cpu_s, "launches": c}
+    print(json.dumps({"train_quickstart": res}))
+    return res
+
+
+def train_batches(b: int, n: int, dev) -> list:
+    stream = CtrStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
+                                     n_dense=13, batch_size=b, seed=SEED))
+    return [{k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(k).items()} for k in range(n)]
+
+
+def full_width_path(cfg: RecsysConfig, params) -> dict:
+    """(b): three SGD steps at B=512 on the card and on the CPU, params
+    compared after each, and their change since the start by
+    ``UpdateErr`` (M's change is far below the params' 1e-4 bound); then
+    five adagrad steps at B=65536 with the launch counts of every step."""
+    small = train_batches(B_P99, 3, "cpu")
+    opt = OptimizerConfig(kind="sgd", lr=0.01)
+    start = to_device(params, "cpu")
+    states = {}
+    for where in ("cuda", "cpu"):
+        p = to_device(params, where)
+        snaps = []
+
+        def hook(step_fn, snaps=snaps):
+            def step(state, batch):
+                state, m = step_fn(state, batch)
+                snaps.append((float(m["loss"]),
+                               [x.cpu() for x in leaves(state["params"])]))
+                return state, m
+            return step
+        train_run(cfg, p, opt, lambda k: small[k], 3, hook)
+        states[where] = snaps
+    sgd_diff, sgd_rel = 0.0, {}
+    for k, ((lc, pc), (lh, ph)) in enumerate(zip(states["cuda"],
+                                                 states["cpu"])):
+        require(np.isfinite(lc) and abs(lc - lh) <= TRAIN_TOL,
+                f"full width SGD step {k}: loss {lc} on the card, {lh} on "
+                f"the CPU")
+        for a, b in zip(pc, ph):
+            require(torch.allclose(a, b, rtol=TRAIN_TOL, atol=TRAIN_TOL),
+                    f"full width SGD step {k}: params differ by "
+                    f"{float((a - b).abs().max())}")
+            sgd_diff = max(sgd_diff, float((a - b).abs().max()))
+        upd = UpdateErr(start)
+        upd.add(start, unflatten(start, pc), unflatten(start, ph))
+        for name, r in upd.rel().items():
+            require(r <= UPDATE_TOL,
+                    f"full width SGD step {k}: {name}'s change since the "
+                    f"start differs from the CPU's by {r} of its norm")
+            sgd_rel[name] = max(sgd_rel.get(name, 0.0), r)
+    sgd_losses = [lc for lc, _ in states["cuda"]]
+    del states
+
+    big = train_batches(B_TRAIN, 5, "cpu")
+    per_step = []
+
+    def count(step_fn):
+        def step(state, batch):
+            reset_launches()
+            out = step_fn(state, batch)
+            torch.cuda.synchronize()
+            per_step.append(launch_counts())
+            return out
+        return step
+    rep = train_run(cfg, params, OptimizerConfig(kind="adagrad", lr=1e-3),
+                    lambda k: big[k], 5, count)
+    require(len(rep.losses) == 5 and np.isfinite(rep.losses).all(),
+            f"full width adagrad: losses {rep.losses}")
+    for k, c in enumerate(per_step):
+        require(all(n == (1 if name in TRAIN_KERNELS else 0)
+                    for name, n in c.items()),
+                f"full width adagrad step {k} launched {c}; expected one "
+                f"each of {TRAIN_KERNELS} and no other kernel")
+    res = {"sgd_b512_max_param_diff": sgd_diff,
+           "sgd_b512_update_rel_err": sgd_rel, "sgd_b512_losses": sgd_losses,
+           "adagrad_b65536_losses": rep.losses,
+           "launches_per_step": per_step[0],
+           "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]}}
+    print(json.dumps({"train_full_width": res}))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -675,6 +1086,101 @@ def time_kernels(gen, memory, spec, subs, rates, dev) -> dict:
     return out
 
 
+def time_backwards(gen, spec, rates, dev) -> dict:
+    """The two backward kernels at B=512 and at the training batch
+    (B=65536, tag "_train"), each beside its bound; the plain versions at
+    B=512; ``torch.bmm(sym, feats)`` as ``dot_interaction_bwd``'s library
+    yardstick."""
+    tids = tuple(range(F))
+    n = F + 1
+    p = n * (n - 1) // 2
+    out = {"robe_lookup_bwd": {}, "dot_interaction_bwd": {}}
+    rb, db = out["robe_lookup_bwd"], out["dot_interaction_bwd"]
+    for b, n_in in ((B_P99, 8), (B_TRAIN, 2)):
+        tag = "" if b == B_P99 else "_train"
+        rows = bulk_inputs(gen, dev, b, n_in)
+        gs = [torch.randn((b, F, D), generator=gen, device=dev)
+              for _ in range(n_in)]
+        feats = [torch.randn((b, n, D), generator=gen, device=dev)
+                 for _ in range(n_in)]
+        gts = [torch.randn((b, p), generator=gen, device=dev)
+               for _ in range(n_in)]
+        uniq = int(touched_slots(spec, rows[0]).sum())
+        # bytes: g and the rows read, the |M| f32 workspace zeroed, each
+        # touched slot read and written once by the atomics
+        rb["bound_ms" + tag], rb["bound_by" + tag] = bound(
+            b * F * D * 4 + b * F * 4 + spec.size * 4 + 8 * uniq, 0, rates)
+        rb["touched_slots" + tag] = uniq
+        rb["library_ms" + tag] = None
+        # bytes: feats and g read, dfeats written; FLOP 2·B·F²·D
+        db["bound_ms" + tag], db["bound_by" + tag] = bound(
+            2 * b * n * D * 4 + b * p * 4, 2 * b * n * n * D, rates)
+        rb["ms" + tag] = device_ms(
+            lambda r, g: robe_lookup_bwd_cuda(g, r, tids, D, spec),
+            list(zip(rows, gs)))
+        db["ms" + tag] = device_ms(
+            lambda g, x: dot_interaction_bwd_cuda(g, x, False),
+            list(zip(gts, feats)))
+        syms = [interaction_sym(g, n, False) for g in gts]
+        db["library_ms" + tag] = device_ms(torch.bmm, list(zip(syms, feats)))
+        if b == B_P99:
+            rb["plain_ms"] = device_ms(
+                lambda r, g: robe_lookup_bwd_ref(g, r, tids, D, spec),
+                list(zip(rows, gs)))
+            db["plain_ms"] = device_ms(
+                lambda g, x: dot_interaction_bwd_ref(g, x, False),
+                list(zip(gts, feats)))
+        del rows, gs, feats, gts, syms
+        torch.cuda.empty_cache()
+    return out
+
+
+def device_breakdown(fn, calls: int = 3) -> dict:
+    """Device time per call of ``fn`` by kernel name (``torch.profiler``)
+    and the card's busy share of the host-clock window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            per[evt.name[:60]] = per.get(evt.name[:60], 0.0) + \
+                evt.time_range.elapsed_us()
+    busy = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    return {"wall_ms": wall_us / calls / 1e3,
+            "device_ms": busy / calls / 1e3,
+            "busy_share": busy / wall_us if per else None,
+            "top_ms": {k: v / calls / 1e3 for k, v in top}}
+
+
+def time_train_step(cfg: RecsysConfig, params) -> dict:
+    """One full-width adagrad ``step_fn`` at B=65536: host-clock median
+    (batch on the card, the loss read back as ``run`` reads it), and its
+    device breakdown."""
+    optimizer = make_optimizer(OptimizerConfig(kind="adagrad", lr=1e-3))
+    tc = TrainConfig()
+    step_fn = build_train_step(lambda p, b: loss_fn(p, cfg, b), optimizer,
+                               tc)
+    batch = train_batches(B_TRAIN, 1, "cuda")[0]
+    box = {"state": init_state(params, optimizer, tc)}
+
+    def one():
+        box["state"], m = step_fn(box["state"], batch)
+        float(m["loss"])
+    ms = host_ms(one, reps=7)
+    prof = device_breakdown(one)
+    return {"step_ms": ms, "batch": B_TRAIN, "profile": prof}
+
+
 def time_scores(paths: dict, batches: dict) -> dict:
     """Host-clock ``score`` time per batch of every path ({label: (server,
     backend)}) at each size of ``batches`` ({size: (batch, n_valid)})."""
@@ -686,32 +1192,10 @@ def time_scores(paths: dict, batches: dict) -> dict:
     return out
 
 
-def profile_scores(paths: dict, batch, n: int, calls: int = 3) -> dict:
-    """Device time per ``score`` call by kernel name (``torch.profiler``),
-    and the card's busy share of the host-clock window, per path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    out = {}
-    for label, (server, backend) in paths.items():
-        server.score(backend, batch, n)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                server.score(backend, batch, n)
-            wall_us = (time.perf_counter() - t0) * 1e6
-        per = {}
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA:
-                per[evt.name[:60]] = per.get(evt.name[:60], 0.0) + \
-                    evt.time_range.elapsed_us()
-        busy = sum(per.values())
-        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-        out[label] = {"wall_ms": wall_us / calls / 1e3,
-                      "device_ms": busy / calls / 1e3,
-                      "busy_share": busy / wall_us if per else None,
-                      "top_ms": {k: v / calls / 1e3 for k, v in top}}
-    return out
+def profile_scores(paths: dict, batch, n: int) -> dict:
+    """``device_breakdown`` of ``score`` per path."""
+    return {label: device_breakdown(lambda: server.score(backend, batch, n))
+            for label, (server, backend) in paths.items()}
 
 
 def main() -> int:
@@ -764,28 +1248,44 @@ def main() -> int:
     print(f"main paths ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    rcfg = cfg.recsys_cfg("robe")
+    # the served weights, copied out of inference mode for training
+    robe_params = tree_map(torch.clone, fused.params("robe"))
+    quickstart_path()
+    full = full_width_path(rcfg, robe_params)
+    print(f"training paths ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     paths = {"fused": (fused, "robe"), "unfused": (unfused, "robe"),
              **{kind: (subs, kind) for kind in SUBSTRATES}}
     batches = {size: padded_batches((size,), size)[0]
                for size in (B_P99, B_BULK)}
     with torch.inference_mode():
         times = time_kernels(gen, memory, spec, subs, rates, dev)
+        times.update(time_backwards(gen, spec, rates, dev))
         scores = time_scores(paths, batches)
         prof = profile_scores(paths, *batches[B_BULK])
+    train_step = time_train_step(rcfg, robe_params)
     print(f"timing done ({time.perf_counter() - t0:.1f} s)")
     print(json.dumps({"profile_score_262144": prof}))
+    print(json.dumps({"train_step_65536": train_step}))
     print(json.dumps({"score_ms": scores, "batch": B_P99,
                       "batch_bulk": B_BULK, "card": smi}))
 
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],
                 "serve_fused": c_fused["serve_fused"],
-                **{k: c_subs[kind][k] for kind, k in SUBSTRATES.items()}}
+                **{k: c_subs[kind][k] for kind, k in SUBSTRATES.items()},
+                **{k: full["launches"][k] for k in ("robe_lookup_bwd",
+                                                    "dot_interaction_bwd")}}
     kernels = []
     for k, meta in KERNELS.items():
         row = {"name": k, "route": "cuda", **meta, "launches": launches[k],
                "max_abs_err": err[k]["float32"],
                "max_abs_err_bf16": err[k]["bfloat16"]}
+        if "over_a" in err[k]:            # the scatter's error / A
+            row["max_err_over_a"] = err[k]["over_a"]["float32"]
+            row["max_err_over_a_bf16"] = err[k]["over_a"]["bfloat16"]
         row.update(times[k])
         kernels.append(row)
     print(smi)

@@ -1,4 +1,4 @@
-"""Build and load the serve-path CUDA kernels.
+"""Build and load the port's CUDA kernels.
 
 The sources in ``csrc/`` (a plain C interface, no PyTorch headers) are
 compiled with ``nvcc`` for ``sm_90a`` into
@@ -29,11 +29,15 @@ LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_p, _i, _u64p, _u32p, _i32p = (ctypes.c_void_p, ctypes.c_int,
-                               ctypes.POINTER(ctypes.c_uint64),
-                               ctypes.POINTER(ctypes.c_uint32),
-                               ctypes.POINTER(ctypes.c_int32))
+_p, _i, _ll, _u64p, _u32p, _i32p = (ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_longlong,
+                                    ctypes.POINTER(ctypes.c_uint64),
+                                    ctypes.POINTER(ctypes.c_uint32),
+                                    ctypes.POINTER(ctypes.c_int32))
 MAX_FIELDS = 128      # ROBE_MAX_FIELDS in csrc/robe_common.cuh
+#: shared memory a block may use on Hopper (bytes): kSmemLimit in
+#: csrc/robe_common.cuh
+MAX_SMEM = 227 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: argtypes of every entry point: pointers and the stream as c_void_p, or
@@ -50,6 +54,9 @@ SIGNATURES = {
                          _p),
     "tt_lookup_launch": (_p, _p, _p, _p, _p, _i, _i, _i32p, _i, _i, _i, _i,
                          _i, _i, _i, _i, _p),
+    "robe_lookup_bwd_launch": (_p, _p, _p, _p, _i, _i, _ll, _ll, _u64p,
+                               _u32p, _i, _i, _i, _i, _p),
+    "dot_interaction_bwd_launch": (_p, _ll, _p, _p, _i, _i, _i, _i, _i, _p),
 }
 
 

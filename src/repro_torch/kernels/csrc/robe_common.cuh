@@ -1,4 +1,4 @@
-// Shared device code of the serve-path kernels: the ROBE slot and sign
+// Shared device code of the port's kernels: the ROBE slot and sign
 // hash, dtype conversions and the shared-memory opt-in.  Header only; every
 // .cu file that includes it compiles its own copy (no relocatable device
 // code needed).

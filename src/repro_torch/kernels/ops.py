@@ -1,4 +1,4 @@
-"""Public serve-path ops, dispatched by device.
+"""The port's public ops, dispatched by device.
 
 A CUDA tensor goes to the Hopper kernel, a CPU tensor to the plain
 version, and any other device raises: nothing falls back.  (The JAX
@@ -6,10 +6,16 @@ package chose by ``jax.default_backend()`` and a ``use_kernel`` flag; here
 ``use_kernel`` only chooses the fused serve path or the unfused one, in
 ``models/recsys.py``.)
 
-The ops are forward only for now: each is a ``torch.autograd.Function``
-whose backward raises ``NotImplementedError`` until the training slice
-ports the JAX package's custom VJPs.  The serve path runs under
-``torch.inference_mode()``.
+Each op is a ``torch.autograd.Function``.  ``robe_lookup`` and
+``dot_interaction``, the two ops of the DLRM's training step, have the
+backwards of the JAX package's custom VJPs, dispatched by device like
+their forwards: on the card the Hopper kernels ``robe_lookup_bwd`` (the
+sign-corrected scatter-add into M) and ``dot_interaction_bwd``.
+``serve_fused``, ``qrobe_lookup``, ``qr_lookup`` and ``tt_lookup`` are
+forward only: their backwards raise ``NotImplementedError`` and come with
+the next slice of the port, which trains the compressed substrates.  The
+serve path runs under ``torch.inference_mode()``; an op saves its
+backward's inputs only when its first input needs a gradient.
 """
 
 from __future__ import annotations
@@ -17,12 +23,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.robe import RobeSpec
-from repro_torch.kernels.dot_interaction import (dot_interaction_cuda,
+from repro_torch.kernels.dot_interaction import (dot_interaction_bwd_cuda,
+                                                 dot_interaction_bwd_ref,
+                                                 dot_interaction_cuda,
                                                  dot_interaction_ref)
 from repro_torch.kernels.qr_lookup import qr_lookup_cuda, qr_lookup_ref
 from repro_torch.kernels.qrobe_lookup import (qrobe_lookup_cuda,
                                               qrobe_lookup_ref)
-from repro_torch.kernels.robe_lookup import robe_lookup_cuda, robe_lookup_ref
+from repro_torch.kernels.robe_lookup import (robe_lookup_bwd_cuda,
+                                             robe_lookup_bwd_ref,
+                                             robe_lookup_cuda, robe_lookup_ref)
 from repro_torch.kernels.serve_fused import serve_fused_cuda, serve_fused_ref
 from repro_torch.kernels.tt_lookup import tt_lookup_cuda, tt_lookup_ref
 
@@ -38,31 +48,75 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
+#: the slice of the port that brings each missing backward
+LATER = {
+    "qrobe_lookup": "the next slice, which trains the compressed substrates",
+    "qr_lookup": "the next slice, which trains the compressed substrates",
+    "tt_lookup": "the next slice, which trains the compressed substrates",
+    "serve_fused": "the slice after the compressed substrates' training "
+                   "(the JAX package's _serve_bwd)",
+}
+
+
 class _ForwardOnly(torch.autograd.Function):
+    """An op whose backward the port does not have yet; its forward sets
+    ``ctx.op_name``."""
+
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "the repro_torch serve ops are forward only; their backward "
-            "comes with the training slice of the port")
+            f"the backward of {ctx.op_name} is not yet ported: it comes with "
+            f"{LATER[ctx.op_name]} (ROADMAP module item 1)")
 
 
-class _RobeLookup(_ForwardOnly):
+class _RobeLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, memory, rows, table_ids, dim, spec):
         fn = robe_lookup_cuda if _on_cuda(memory) else robe_lookup_ref
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(rows)
+            ctx.args = (table_ids, dim, spec, memory.dtype)
         return fn(memory, rows, table_ids, dim, spec)
 
+    @staticmethod
+    def backward(ctx, g):
+        (rows,) = ctx.saved_tensors
+        table_ids, dim, spec, mem_dtype = ctx.args
+        if _on_cuda(g):
+            fn = robe_lookup_bwd_cuda
+            if g.stride(-1) != 1:
+                g = g.contiguous()
+        else:
+            fn = robe_lookup_bwd_ref
+        gm = fn(g.to(mem_dtype), rows, table_ids, dim, spec)
+        return gm, None, None, None, None
 
-class _DotInteraction(_ForwardOnly):
+
+class _DotInteraction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, self_interaction):
         fn = dot_interaction_cuda if _on_cuda(feats) else dot_interaction_ref
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(feats)
+            ctx.self_interaction = self_interaction
         return fn(feats, self_interaction)
+
+    @staticmethod
+    def backward(ctx, g):
+        (feats,) = ctx.saved_tensors
+        if _on_cuda(g):
+            fn = dot_interaction_bwd_cuda
+            if g.dim() == 2 and g.shape[1] > 1 and g.stride(1) != 1:
+                g = g.contiguous()
+        else:
+            fn = dot_interaction_bwd_ref
+        return fn(g.to(feats.dtype), feats, ctx.self_interaction), None
 
 
 class _ServeFused(_ForwardOnly):
     @staticmethod
     def forward(ctx, memory, idx, bot, table_ids, dim, spec):
+        ctx.op_name = "serve_fused"
         fn = serve_fused_cuda if _on_cuda(memory) else serve_fused_ref
         return fn(memory, idx, bot, table_ids, dim, spec)
 
@@ -71,6 +125,7 @@ class _QrobeLookup(_ForwardOnly):
     @staticmethod
     def forward(ctx, codes, scale, rows, table_ids, dim, spec, group_log2,
                 delta):
+        ctx.op_name = "qrobe_lookup"
         fn = qrobe_lookup_cuda if _on_cuda(codes) else qrobe_lookup_ref
         return fn(codes, scale, rows, table_ids, dim, spec, group_log2,
                   delta)
@@ -79,6 +134,7 @@ class _QrobeLookup(_ForwardOnly):
 class _QrLookup(_ForwardOnly):
     @staticmethod
     def forward(ctx, q_table, r_table, idx, q_off, r_off, m):
+        ctx.op_name = "qr_lookup"
         fn = qr_lookup_cuda if _on_cuda(q_table) else qr_lookup_ref
         return fn(q_table, r_table, idx, q_off, r_off, m)
 
@@ -86,6 +142,7 @@ class _QrLookup(_ForwardOnly):
 class _TtLookup(_ForwardOnly):
     @staticmethod
     def forward(ctx, core0, core1, core2, idx, offsets, factors, dim):
+        ctx.op_name = "tt_lookup"
         fn = tt_lookup_cuda if _on_cuda(core0) else tt_lookup_ref
         return fn(core0, core1, core2, idx, offsets, factors, dim)
 

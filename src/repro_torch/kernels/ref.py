@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the six serve-path kernels.
+"""Plain PyTorch versions of the port's kernels: the six forward kernels
+and the backwards of ``robe_lookup`` and ``dot_interaction``.
 
 Each function is the semantics its Hopper kernel is held against: the CPU
 path of ``repro_torch.kernels.ops`` runs them, the tests hold them against
@@ -21,6 +22,21 @@ def robe_lookup_ref(memory: torch.Tensor, rows: torch.Tensor,
     """[B, F] rows (+ per-field table ids) -> [B, F, dim] embeddings."""
     tids = torch.as_tensor(table_ids, dtype=torch.int64, device=rows.device)
     return _core_lookup(memory, spec, tids[None, :], rows, dim)
+
+
+def robe_lookup_bwd_ref(g: torch.Tensor, rows: torch.Tensor, table_ids,
+                        dim: int, spec: RobeSpec) -> torch.Tensor:
+    """The lookup's cotangent g [B, F, dim] -> gM [|M|] in g's dtype (M's):
+    the paper's Fig.-2 scatter-add of every element's ``g · sign`` into the
+    slot its forward read, accumulated in f32 and rounded once."""
+    tids = torch.as_tensor(table_ids, dtype=torch.int64,
+                           device=rows.device)[None, :]
+    slots = robe_slots(spec, tids, rows, dim)            # [B, F, dim] int64
+    g32 = g.to(torch.float32)
+    if spec.use_sign:
+        g32 = g32 * robe_signs(spec, tids, rows, dim)
+    gm = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
+    return gm.index_add_(0, slots.reshape(-1), g32.reshape(-1)).to(g.dtype)
 
 
 def qrobe_dequant_ref(codes: torch.Tensor, scale: torch.Tensor,
@@ -69,6 +85,28 @@ def dot_interaction_ref(feats: torch.Tensor, self_interaction: bool = False
     rows, cols = np.tril_indices(feats.shape[1],
                                  k=0 if self_interaction else -1)
     return gram[:, rows, cols].to(feats.dtype)
+
+
+def interaction_sym(g: torch.Tensor, n: int, self_interaction: bool
+                    ) -> torch.Tensor:
+    """The triangle cotangent g [B, P] -> the symmetric [B, n, n] f32 matrix
+    with g_ij at (i, j) and (j, i); with the diagonal, 2·g_ii at (i, i)."""
+    rows, cols = np.tril_indices(n, k=0 if self_interaction else -1)
+    g32 = g.to(torch.float32)
+    sym = torch.zeros((g.shape[0], n, n), dtype=torch.float32,
+                      device=g.device)
+    sym[:, rows, cols] += g32
+    sym[:, cols, rows] += g32
+    return sym
+
+
+def dot_interaction_bwd_ref(g: torch.Tensor, feats: torch.Tensor,
+                            self_interaction: bool = False) -> torch.Tensor:
+    """The interaction's cotangent g [B, P] and its input feats [B, F, D]
+    -> dfeats [B, F, D] = sym(g) · feats, accumulated in f32 and rounded
+    once into feats' dtype."""
+    sym = interaction_sym(g, feats.shape[1], self_interaction)
+    return torch.bmm(sym, feats.to(torch.float32)).to(feats.dtype)
 
 
 def serve_fused_ref(memory: torch.Tensor, idx: torch.Tensor,

@@ -1,9 +1,14 @@
-"""Hopper kernel for the ROBE lookup, beside its plain version.
+"""Hopper kernels for the ROBE lookup and its backward, beside their plain
+versions.
 
 ``robe_lookup_cuda`` launches ``csrc/robe_lookup.cu`` (the port of
 ``robe_lookup_pallas``): [B, F] int32 rows -> [B, F, dim] embeddings in M's
-dtype, hashed and gathered in one pass.  ``robe_lookup_ref`` is the plain
-PyTorch version it is held against.
+dtype, hashed and gathered in one pass.  ``robe_lookup_bwd_cuda`` launches
+``csrc/robe_lookup_bwd.cu`` (the port of the JAX package's ``_lookup_bwd``):
+the cotangent [B, F, dim] -> gM [|M|], the sign-corrected scatter-add into
+the slots the forward read, by f32 atomics.  ``robe_lookup_ref`` and
+``robe_lookup_bwd_ref`` are the plain PyTorch versions they are held
+against.
 """
 
 from __future__ import annotations
@@ -12,9 +17,10 @@ import torch
 
 from repro_torch.core.robe import RobeSpec
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import robe_lookup_ref
+from repro_torch.kernels.ref import robe_lookup_bwd_ref, robe_lookup_ref
 
-__all__ = ["robe_lookup_cuda", "robe_lookup_ref"]
+__all__ = ["robe_lookup_cuda", "robe_lookup_ref", "robe_lookup_bwd_cuda",
+           "robe_lookup_bwd_ref"]
 
 
 def robe_lookup_cuda(memory: torch.Tensor, rows: torch.Tensor, table_ids,
@@ -55,3 +61,44 @@ def robe_lookup_cuda(memory: torch.Tensor, rows: torch.Tensor, table_ids,
 
 
 robe_lookup_cuda.launches = 0
+
+
+def robe_lookup_bwd_cuda(g: torch.Tensor, rows: torch.Tensor, table_ids,
+                         dim: int, spec: RobeSpec) -> torch.Tensor:
+    """The lookup's cotangent g [B, F, dim] on the card (any batch and field
+    strides, elements contiguous) -> gM [|M|] in ``g``'s dtype, summed in
+    f32 in no fixed order."""
+    if not (g.is_cuda and rows.device == g.device):
+        raise ValueError("robe_lookup_bwd_cuda needs g and rows on one CUDA "
+                         "device")
+    if rows.dtype != torch.int32 or rows.dim() != 2 or \
+            not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous [B, F] int32, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    b, f = rows.shape
+    if g.shape != (b, f, dim) or g.stride(2) != 1:
+        raise ValueError(f"g must be [{b}, {f}, {dim}] with contiguous "
+                         f"elements, got {tuple(g.shape)} strides "
+                         f"{g.stride()}")
+    tids = tuple(int(t) for t in table_ids)
+    if len(tids) != f:
+        raise ValueError(f"{len(tids)} table ids for {f} fields")
+    if dim < 1 or b * f >= 2 ** 31:
+        raise ValueError(f"unsupported shape: B*F = {b * f}, dim = {dim}")
+    code = _build.dtype_code(g)
+    ws = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
+    out = ws if g.dtype == torch.float32 else \
+        torch.empty(spec.size, dtype=g.dtype, device=g.device)
+    if b == 0:
+        return out.zero_()
+    coeffs, tid_arr = _build.hash_args(spec, tids)
+    err = _build.library().robe_lookup_bwd_launch(
+        g.data_ptr(), rows.data_ptr(), ws.data_ptr(), out.data_ptr(), b * f,
+        code, g.stride(0), g.stride(1), coeffs, tid_arr, f, dim, spec.log2_z,
+        int(spec.use_sign), _build.stream_ptr(g))
+    _build.check("robe_lookup_bwd", err)
+    robe_lookup_bwd_cuda.launches += 1
+    return out
+
+
+robe_lookup_bwd_cuda.launches = 0

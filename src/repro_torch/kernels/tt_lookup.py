@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import MAX_SMEM
 from repro_torch.kernels.ref import tt_lookup_ref
 
 __all__ = ["tt_lookup_cuda", "tt_lookup_ref", "plan"]
@@ -26,9 +27,6 @@ WARPS = 2
 ANY_WARPS = 8
 #: ranks with an instance of their own: kRanks in csrc/tt_lookup.cu
 RANKS = (4, 8)
-#: shared memory a block may use on Hopper (bytes): kSmemLimit in
-#: csrc/gram.cuh
-MAX_SMEM = 232_448
 
 
 def _pad16(n: int) -> int:

@@ -1,7 +1,8 @@
 """RecSys models (PyTorch port of ``repro.models.recsys``; DLRM only).
 
 Batch layout: dense features [B, n_dense] float, sparse ids [B, F] int32,
-both tensors on the model's device.  Outputs are logits [B].  The other
+labels [B] (for ``loss_fn``), all tensors on the model's device.  Outputs
+are logits [B].  The other
 architectures of the JAX package (autoint, xdeepfm, deepfm, dcn, fibinet,
 two_tower) raise until they are ported.
 """
@@ -146,3 +147,37 @@ def forward(params, cfg: RecsysConfig, batch: dict,
 def serve_scores(params, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
     """Online/bulk inference: CTR logits [B]."""
     return forward(params, cfg, batch, serve=True)
+
+
+def loss_fn(params, cfg: RecsysConfig, batch: dict) -> Tuple[torch.Tensor,
+                                                             dict]:
+    """Mean binary cross-entropy of the logits against ``batch["label"]``,
+    in the JAX package's form ``max(l, 0) - l·y + log1p(exp(-|l|))``.
+    Returns (loss, {"logloss": loss})."""
+    _check_arch(cfg)
+    logits = forward(params, cfg, batch)
+    y = batch["label"].to(torch.float32)
+    ce = torch.mean(torch.clamp_min(logits, 0) - logits * y
+                    + torch.log1p(torch.exp(-torch.abs(logits))))
+    return ce, {"logloss": ce}
+
+
+def make_project_fn(cfg: RecsysConfig):
+    """Post-optimizer projection for the model's params, or None.
+
+    Backends whose stored parameters are not what the math sees expose
+    ``EmbeddingBackend.project``; this lifts it from the embedding subtree
+    to the full param dict for ``build_train_step(project=...)``.  Float
+    substrates (robe, hashed, tt) return None and the train step skips the
+    hook.
+    """
+    _check_arch(cfg)
+    spec = cfg.embedding_spec()
+    backend = get_backend(spec.kind)
+    if backend.project is None:
+        return None
+
+    def project(params):
+        return dict(params,
+                    embedding=backend.project(params["embedding"], spec))
+    return project

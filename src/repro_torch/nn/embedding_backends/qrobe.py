@@ -86,6 +86,14 @@ class QRobeBackend(EmbeddingBackend):
                 "delta": torch.zeros(size, dtype=torch.float32,
                                      device=w.device)}
 
+    def project(self, params, spec) -> dict:
+        """The post-step fold of ``delta`` into the codes (the JAX package's
+        ``project``), which comes with the qrobe training slice."""
+        raise NotImplementedError(
+            "qrobe's project (the post-step requantization) is not yet "
+            "ported: it comes with the next slice of the port, which trains "
+            "the compressed substrates (ROADMAP module item 1)")
+
     def lookup(self, params, spec, idx, fields=None):
         fields = tuple(fields if fields is not None
                        else range(spec.n_fields))

@@ -6,9 +6,10 @@ and routes each request to it through ``serve_scores``.  For ``robe`` with
 ``use_kernel`` that is the fused ``serve_fused`` kernel, else the unfused
 ``robe_lookup`` -> concat -> ``dot_interaction`` kernels.  ``qrobe``,
 ``hashed`` and ``tt`` decline the fused path and always take the unfused
-one, with their own lookup kernels (``qrobe_lookup`` plus ``robe_lookup``
-for its delta term, ``qr_lookup``, ``tt_lookup``).  On the card every path
-runs the Hopper kernels; on the CPU (``device="cpu"``) the plain versions.
+one, with their own lookup kernels (``qrobe_lookup``, which adds its
+``delta`` term in the same launch, ``qr_lookup``, ``tt_lookup``).  On the
+card every path runs the Hopper kernels; on the CPU (``device="cpu"``) the
+plain versions.
 
 Batches arrive padded to a fixed shape with ``n_valid`` leading real rows
 (the router's ``stack_and_pad`` contract); the scorer returns only the real

@@ -529,20 +529,115 @@ def test_hash_args_carry_fastmod_constants():
 
 
 # ---------------------------------------------------------------------------
+# the plain backwards against the JAX package's custom-VJP backwards, called
+# directly (the autograd path through them is in tests/test_torch_train.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,f,dim,z", [(17, 3, 24, 16), (7, 2, 8, 32),
+                                       (11, 3, 40, 1), (5, 3, 130, 32)])
+@pytest.mark.parametrize("use_sign", (False, True))
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_robe_lookup_bwd_ref_matches_jax_lookup_bwd(b, f, dim, z, use_sign,
+                                                    dt):
+    js, ts = _specs(z, use_sign, size=509)
+    rs = np.random.RandomState(b + dim)
+    rows = rs.randint(0, 40_000_000, (b, f)).astype(np.int32)
+    g = rs.randn(b, f, dim).astype(np.float32)
+    tids = tuple(range(f))
+    got = tref.robe_lookup_bwd_ref(_t(g, dt), _t(rows), tids, dim, ts)
+    want, none = jops._lookup_bwd(tids, dim, js, False,
+                                  (jnp.asarray(rows), 509),
+                                  jnp.asarray(g, JDT[dt]))
+    assert none is None and got.dtype == TDT[dt] and got.shape == (509,)
+    # the scatter's bound: 1e-5 (f32) or 1e-2 (bf16) of the sum of |g| a
+    # slot receives, plus 1e-7
+    a = tref.robe_lookup_bwd_ref(_t(np.abs(g), dt), _t(rows), tids, dim,
+                                 _specs(z, False, size=509)[1])
+    rel = 1e-5 if dt == "f32" else 1e-2
+    assert (np.abs(_np(got) - _np(want)) <= rel * _np(a) + 1e-7).all()
+
+
+@pytest.mark.parametrize("b,f,d", [(16, 3, 24), (13, 27, 128), (5, 9, 3),
+                                   (1, 2, 1)])
+@pytest.mark.parametrize("self_interaction", (False, True))
+@pytest.mark.parametrize("dt", ("f32", "bf16"))
+def test_dot_interaction_bwd_ref_matches_jax_dot_bwd(b, f, d,
+                                                     self_interaction, dt):
+    rs = np.random.RandomState(b * f + d)
+    feats = rs.randn(b, f, d).astype(np.float32)
+    n = f * (f + 1) // 2 if self_interaction else f * (f - 1) // 2
+    g = rs.randn(b, n).astype(np.float32)
+    got = tref.dot_interaction_bwd_ref(_t(g, dt), _t(feats, dt),
+                                       self_interaction)
+    (want,) = jops._dot_bwd(self_interaction, False,
+                            (jnp.asarray(feats, JDT[dt]),),
+                            jnp.asarray(g, JDT[dt]))
+    assert got.dtype == TDT[dt] and got.shape == (b, f, d)
+    _close(got, want, dt)
+
+
+def test_interaction_sym_doubles_the_diagonal():
+    g = torch.arange(1.0, 7.0)[None, :]              # F = 3 with diagonal
+    sym = tref.interaction_sym(g, 3, True)[0]
+    # pairs (0,0) (1,0) (1,1) (2,0) (2,1) (2,2) -> 1..6
+    want = torch.tensor([[2.0, 2.0, 4.0], [2.0, 6.0, 5.0], [4.0, 5.0, 12.0]])
+    assert torch.equal(sym, want)
+    strict = tref.interaction_sym(torch.tensor([[1.0, 2.0, 3.0]]), 3, False)
+    assert torch.equal(strict[0], torch.tensor(
+        [[0.0, 1.0, 2.0], [1.0, 0.0, 3.0], [2.0, 3.0, 0.0]]))
+
+
+# ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain path, other devices raise, and the
 # forward-only ops refuse a backward
 # ---------------------------------------------------------------------------
 
 def test_ops_refuse_backward():
+    """``robe_lookup`` and ``dot_interaction`` have backwards (see
+    tests/test_torch_train.py); the four forward-only ops raise, naming
+    the slice that brings theirs."""
     _, ts = _specs(16, False)
     mem = torch.randn(4096, requires_grad=True)
     rows = torch.randint(0, 100, (3, 2), dtype=torch.int32)
-    out = tops.robe_lookup(mem, rows, (0, 1), 16, ts)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+    tops.robe_lookup(mem, rows, (0, 1), 16, ts).sum().backward()
+    assert mem.grad.shape == (4096,)
     feats = torch.randn(3, 4, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        tops.dot_interaction(feats).sum().backward()
+    tops.dot_interaction(feats).sum().backward()
+    assert feats.grad.shape == (3, 4, 8)
+    codes = torch.zeros(4096, dtype=torch.int8)
+    scale = torch.ones(16, requires_grad=True)
+    cores = [torch.randn(s, requires_grad=True)
+             for s in ((4, 2, 3), (4, 3, 2, 3), (4, 3, 2))]
+    q, r = (torch.randn(5, 8, requires_grad=True),
+            torch.randn(8, 8, requires_grad=True))
+    ids = torch.randint(0, 8, (3, 2), dtype=torch.int32)
+    outs = {
+        "serve_fused": tops.serve_fused(mem, rows, torch.randn(3, 16),
+                                        (0, 1), 16, ts),
+        "qrobe_lookup": tops.qrobe_lookup(codes, scale, rows, (0, 1), 16, ts,
+                                          GROUP_LOG2),
+        "qr_lookup": tops.qr_lookup(q, r, ids, (0, 3), (0, 4), 4),
+        "tt_lookup": tops.tt_lookup(*cores, ids, (0, 10), (4, 4, 4), 8),
+    }
+    for name, out in outs.items():
+        later = "slice after" if name == "serve_fused" else "next slice"
+        with pytest.raises(NotImplementedError,
+                           match=f"backward of {name} .*{later}"):
+            out.sum().backward()
+
+
+def test_backward_saves_nothing_without_grad():
+    """Under inference mode (the serve path) and for inputs that need no
+    grad, the ops keep nothing for a backward."""
+    _, ts = _specs(16, False)
+    rows = torch.randint(0, 100, (3, 2), dtype=torch.int32)
+    with torch.inference_mode():
+        out = tops.robe_lookup(torch.randn(4096, requires_grad=True), rows,
+                               (0, 1), 16, ts)
+        gram = tops.dot_interaction(torch.randn(3, 4, 8, requires_grad=True))
+    assert out.grad_fn is None and gram.grad_fn is None
+    assert tops.robe_lookup(torch.randn(4096), rows, (0, 1), 16,
+                            ts).grad_fn is None
 
 
 def test_ops_reject_other_devices():
@@ -588,6 +683,34 @@ def test_cuda_wrappers_refuse_cpu_tensors():
              torch.randn(4, 3, 2))
     with pytest.raises(ValueError, match="CUDA"):
         tk.tt_lookup_cuda(*cores, rows, (0, 10), (4, 4, 4), 8)
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    """The backward kernels' wrappers launch only on CUDA tensors; a CPU
+    tensor raises before the library is built."""
+    _, ts = _specs(16, True)
+    rows = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.robe_lookup_bwd_cuda(torch.randn(3, 2, 16), rows, (0, 1), 16, ts)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.dot_interaction_bwd_cuda(torch.randn(2, 3), torch.randn(2, 3, 4))
+
+
+def test_dot_interaction_bwd_constants_match_the_kernel_source():
+    """The wrapper's shared-memory check repeats the kernel's layout."""
+    import importlib
+    import re
+    from repro_torch.kernels import _build
+    di = importlib.import_module("repro_torch.kernels.dot_interaction")
+    src = (_build.CSRC / "dot_interaction_bwd.cu").read_text()
+    common = (_build.CSRC / "robe_common.cuh").read_text()
+    assert int(re.search(r"kChunk = (\d+);", src).group(1)) == di.BWD_CHUNK
+    assert int(re.search(r"kRows = (\d+);", src).group(1)) == 4
+    assert re.search(r"kSmemLimit = (\d+) \* 1024;", common).group(1) == \
+        str(_build.MAX_SMEM // 1024)
+    # F = 27, D = 128: sym [27][28] and a [27][128] chunk, f32
+    assert di.bwd_smem_bytes(27, 128) == 4 * 27 * (28 + 128)
+    assert di.bwd_smem_bytes(3, 1000) == 4 * 3 * (4 + 128)
 
 
 def test_kernel_sources_and_bindings_agree():
