@@ -33,14 +33,19 @@ non-zero on failure:
    ``1e-5 · A + 1e-7`` in f32 and ``1e-2 · A`` in bf16 of each slot, ``A``
    the same scatter of ``|g|``, at every ``ROBE_REGIMES`` (d, Z), f32 and
    bf16, the sign on and off, B in 1, 509, 512, on a B = 65,536 zipf batch
-   from ``CtrStream`` (head rows repeat thousands of times), on rows that
-   cross the wrap at |M|, on a cotangent with the strides autograd hands
-   over, and on the quickstart's 18,400-slot array (d = 16, Z = 32) under
-   a batch of 1,024 of its stream; ``dot_interaction_bwd`` at full width
-   (F = 27, D = 128) at B = 512, 509 and the training batch 65,536, at
-   the quickstart's (B = 1,024, F = 5, D = 16) and at the forward's ragged
-   shapes, with and without the diagonal, within rtol = atol = 1e-5 in f32
-   and 1e-2 in bf16;
+   from ``CtrStream`` (head rows repeat thousands of times), the same with
+   one field at a single row (a chain of 65,536), on 65,536 samples of
+   all-distinct rows, on rows that cross the wrap at |M| and rows whose
+   ROBE block straddles a band edge of the bucketed scatter, on a
+   cotangent with the strides autograd hands over, and on the
+   quickstart's 18,400-slot array (d = 16, Z = 32) under a batch of 1,024
+   of its stream; ``dot_interaction_bwd`` at full width (F = 27, D = 128)
+   at B = 512, 509 and the training batch 65,536, at the quickstart's
+   (B = 1,024, F = 5, D = 16), at the forward's ragged shapes, and at B =
+   1, 2 with D = 1, 3, 130 (4-byte copies), F = 1, 2, 27 and the largest
+   F of each stage count at D = 128 up to the largest the wrapper takes,
+   with g at the concat's row stride too, with and without the diagonal,
+   within rtol = atol = 1e-5 in f32 and 1e-2 in bf16;
 3. the main paths at full width, each answering four padded batches of
    512 requests (one with n_valid < 512) with every kernel's launch count
    set to 0 before the path and read after it:
@@ -109,12 +114,14 @@ from repro_torch.kernels import (_build, dot_interaction_bwd_cuda,
                                  reset_launches, robe_lookup_bwd_cuda,
                                  robe_lookup_cuda, serve_fused_cuda,
                                  tt_lookup_cuda)
+from repro_torch.kernels.dot_interaction import bwd_plan as di_bwd_plan
 from repro_torch.kernels.ref import (dot_interaction_bwd_ref,
                                      dot_interaction_ref, interaction_sym,
                                      qr_indices, qr_lookup_ref,
                                      qrobe_lookup_ref, robe_lookup_bwd_ref,
                                      robe_lookup_ref, serve_fused_ref,
                                      tt_indices, tt_lookup_ref)
+from repro_torch.kernels.robe_lookup import bwd_plan
 from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
                                        loss_fn)
 from repro_torch.nn.embedding_backends.hashed import (default_buckets,
@@ -241,21 +248,26 @@ def random_rows(gen, shape, dev) -> torch.Tensor:
     return rows.contiguous()
 
 
-def wrap_rows(gen, spec, dev, b: int = 509, chunk: int = 8192) -> torch.Tensor:
+def wrap_rows(gen, spec, dev, b: int = 509, chunk: int = 8192,
+              edges=(0,)) -> torch.Tensor:
     """[b, F] random rows with, in place of some, every (row, field) found
-    among 2^18 random samples whose d=128 elements reach slot |M| - 1 (in
-    the last, partial scale group) and go on to slot 0 inside one ROBE
-    block: the circular wrap.  Fails if none is found."""
+    among 2^18 random samples whose d=128 elements reach slot e - 1 and go
+    on to slot e inside one ROBE block, for an e of ``edges``; by default
+    e = 0: slot |M| - 1 (in the last, partial scale group), then slot 0,
+    the circular wrap.  Fails if none is found."""
     rows = random_rows(gen, (b, F), dev)
     tids = torch.arange(F, device=dev)[None, :]
     hits = []
     for _ in range(2 ** 18 // chunk):
         cand = random_rows(gen, (chunk, F), dev)
         s = robe_slots(spec, tids, cand, D)
-        at = (s[..., :-1] == spec.size - 1) & (s[..., 1:] == 0)
+        at = torch.zeros(s.shape[:-1], dtype=torch.bool, device=dev)
+        for e in edges:
+            at |= ((s[..., :-1] == (e - 1) % spec.size)
+                   & (s[..., 1:] == e)).any(-1)
         hits += [(int(c), int(f), cand[c, f]) for c, f in
-                 torch.nonzero(at.any(-1)).tolist()]
-    require(len(hits) > 0, "no row crosses the wrap at |M|")
+                 torch.nonzero(at).tolist()]
+    require(len(hits) > 0, f"no row crosses a slot edge of {edges[:3]}")
     for k, (_, f, x) in enumerate(hits[:b]):
         rows[k, f] = x
     return rows.contiguous()
@@ -494,18 +506,34 @@ def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
         robe_case(robe_rows[:b], g, sp,
                   f"B={b} Z={z} d={dim} sign={sign} {dt}")
     # a zipf batch of the training shape: head rows repeat thousands of
-    # times, so their slots take contended atomics; rows that cross the
-    # wrap at |M|; a cotangent at the strides of the model's concat
+    # times, so their slots take contended atomics; the same with one field
+    # at a single row (a chain of B); a batch of all-distinct rows; rows
+    # that cross the wrap at |M|, and rows whose ROBE block straddles the
+    # edge of a band of the bucketed scatter (slot k * 2^BAND_LOG2); a
+    # cotangent at the strides of the model's concat
     zipf = bulk_inputs(gen, dev, B_TRAIN, 1)[0]
+    chain = zipf.clone()
+    chain[:, 5] = 12345
+    distinct = (torch.arange(B_TRAIN * F, device=dev, dtype=torch.int32)
+                .view(F, B_TRAIN).t().contiguous())
     wrap = wrap_rows(gen, spec, dev)
+    band = bwd_plan(spec, F, B_TRAIN * F, D).band_log2
+    straddle = wrap_rows(gen, spec, dev, edges=tuple(
+        k << band for k in range(1, ((spec.size - 1) >> band) + 1)))
     wide = torch.randn((wrap.shape[0], F + 1, D), generator=gen, device=dev)
     for dt, sign in itertools.product((torch.float32, torch.bfloat16),
                                       (False, True)):
         sp = dataclasses.replace(spec, use_sign=sign)
         g = torch.randn((B_TRAIN, F, D), generator=gen, device=dev).to(dt)
         robe_case(zipf, g, sp, f"zipf B={B_TRAIN} sign={sign} {dt}")
+        robe_case(chain, g, sp, f"one row in field 5 B={B_TRAIN} "
+                  f"sign={sign} {dt}")
+        robe_case(distinct, g, sp, f"distinct rows B={B_TRAIN} sign={sign} "
+                  f"{dt}")
         robe_case(wrap, wide[:, 1:].to(dt), sp,
                   f"wrap rows, strided g, sign={sign} {dt}")
+        robe_case(straddle, wide[:, 1:].to(dt), sp,
+                  f"band-edge rows, strided g, sign={sign} {dt}")
     # the quickstart's array (18,400 slots, d = 16, Z = 32) under a batch
     # of its own stream: 65,536 elements a step on so few slots contend
     qs_rows = quickstart_rows(dev)
@@ -516,25 +544,47 @@ def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
                         device=dev).to(dt)
         robe_case(qs_rows, g, dataclasses.replace(qs_spec, use_sign=sign),
                   f"quickstart B={qs_rows.shape[0]} sign={sign} {dt}")
-    del zipf, g
+    del zipf, chain, distinct, g
     torch.cuda.synchronize()
 
     # the forward's shapes, the training batch at full width (the grid
     # stride loop takes many samples a block) and the quickstart's; at
     # full width also a cotangent with the row stride of the top MLP's
     # input (the concat of [bot, interaction])
+    # then the pipeline's edges (B = 1, 2: a block holds fewer samples
+    # than stages), the 4-byte copies (D = 1, 3, 130), F = 1, 2 and, at
+    # D = 128, the largest F of each stage count (2, then 1 with narrower
+    # windows of columns and rows), the last the largest the wrapper
+    # takes; every one also with g at the concat's row stride
+    def takes(f, dt, s):
+        return di_bwd_plan(f, D, s, dt.itemsize).smem <= _build.MAX_SMEM \
+            and (f * (f + 1) if s else f * (f - 1)) // 2 < 0x7FFF
+    wide_f = set()
+    for dt, s in itertools.product((torch.float32, torch.bfloat16),
+                                   (False, True)):
+        fits = [f for f in range(1, 300) if takes(f, dt, s)]
+        stages = {di_bwd_plan(f, D, s, dt.itemsize).stages for f in fits}
+        for k in stages:
+            wide_f.add(max(f for f in fits
+                           if di_bwd_plan(f, D, s, dt.itemsize).stages >= k))
+    edge_cases = [(b, f, d, 1.0) for b in (1, 2) for f in (1, 2, F + 1)
+                  for d in (1, 3, 130)] + [(2, f, D, 1.0)
+                                           for f in sorted(wide_f)]
     di_cases = list(di_cases) + [(B_TRAIN, F + 1, D, 1.0),
                                  (QS_BATCH, len(QS_VOCABS) + 1, QS_DIM, 1.0)]
-    for b, f, d, scale in di_cases:
+    for b, f, d, scale in di_cases + edge_cases:
         p = f * (f - 1) // 2
         for dtype, self_int in itertools.product(
                 (torch.float32, torch.bfloat16), (False, True)):
+            if d == D and f > F + 1 and not takes(f, dtype, self_int):
+                continue
             feats = (scale * torch.randn((b, f, d), generator=gen,
                                          device=dev)).to(dtype)
             n = p + f if self_int else p
             g = torch.randn((b, D + n), generator=gen,
                             device=dev).to(dtype)[:, D:]
-            for gg in ((g, g.contiguous()) if (f, d) == (F + 1, D)
+            strided = (f, d) == (F + 1, D) or (b, f, d, scale) in edge_cases
+            for gg in ((g, g.contiguous()) if strided
                        else (g.contiguous(),)):
                 got = dot_interaction_bwd_cuda(gg, feats, self_int)
                 want = dot_interaction_bwd_ref(gg, feats, self_int)
@@ -1090,7 +1140,10 @@ def time_backwards(gen, spec, rates, dev) -> dict:
     """The two backward kernels at B=512 and at the training batch
     (B=65536, tag "_train"), each beside its bound; the plain versions at
     B=512; ``torch.bmm(sym, feats)`` as ``dot_interaction_bwd``'s library
-    yardstick."""
+    yardstick.  Each time is of the wrapper call: for ``robe_lookup_bwd``
+    the zeroing of its |M| f32 workspace, the bucketing passes (count,
+    scan, place) and the scatter together, each pass's device time at the
+    training batch beside it (``passes_ms_train``, ``torch.profiler``)."""
     tids = tuple(range(F))
     n = F + 1
     p = n * (n - 1) // 2
@@ -1123,6 +1176,10 @@ def time_backwards(gen, spec, rates, dev) -> dict:
             list(zip(gts, feats)))
         syms = [interaction_sym(g, n, False) for g in gts]
         db["library_ms" + tag] = device_ms(torch.bmm, list(zip(syms, feats)))
+        if b == B_TRAIN:   # device time by pass (the bucketed scatter's)
+            rb["passes_ms" + tag] = device_breakdown(
+                lambda: robe_lookup_bwd_cuda(gs[0], rows[0], tids, D,
+                                             spec))["top_ms"]
         if b == B_P99:
             rb["plain_ms"] = device_ms(
                 lambda r, g: robe_lookup_bwd_ref(g, r, tids, D, spec),
@@ -1155,7 +1212,7 @@ def device_breakdown(fn, calls: int = 3) -> dict:
             per[evt.name[:60]] = per.get(evt.name[:60], 0.0) + \
                 evt.time_range.elapsed_us()
     busy = sum(per.values())
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:20]
     return {"wall_ms": wall_us / calls / 1e3,
             "device_ms": busy / calls / 1e3,
             "busy_share": busy / wall_us if per else None,

@@ -54,8 +54,8 @@ SIGNATURES = {
                          _p),
     "tt_lookup_launch": (_p, _p, _p, _p, _p, _i, _i, _i32p, _i, _i, _i, _i,
                          _i, _i, _i, _i, _p),
-    "robe_lookup_bwd_launch": (_p, _p, _p, _p, _i, _i, _ll, _ll, _u64p,
-                               _u32p, _i, _i, _i, _i, _p),
+    "robe_lookup_bwd_launch": (_p, _p, _p, _p, _p, _ll, _i, _i, _ll, _ll,
+                               _u64p, _u32p, _i, _i, _i, _i, _p),
     "dot_interaction_bwd_launch": (_p, _ll, _p, _p, _i, _i, _i, _i, _i, _p),
 }
 

@@ -2,16 +2,20 @@
 versions.
 
 ``robe_lookup_cuda`` launches ``csrc/robe_lookup.cu`` (the port of
-``robe_lookup_pallas``): [B, F] int32 rows -> [B, F, dim] embeddings in M's
-dtype, hashed and gathered in one pass.  ``robe_lookup_bwd_cuda`` launches
-``csrc/robe_lookup_bwd.cu`` (the port of the JAX package's ``_lookup_bwd``):
-the cotangent [B, F, dim] -> gM [|M|], the sign-corrected scatter-add into
-the slots the forward read, by f32 atomics.  ``robe_lookup_ref`` and
+``robe_lookup_pallas``): [B, F] int32 rows -> [B, F, dim] embeddings in
+M's dtype, hashed and gathered in one pass. ``robe_lookup_bwd_cuda``
+launches ``csrc/robe_lookup_bwd.cu`` (the port of the JAX package's
+``_lookup_bwd``): the cotangent [B, F, dim] -> gM [|M|], the sign-
+corrected scatter-add into the slots the forward read, by f32 atomics,
+its (item, segment) pairs first bucketed by band of M and field
+(``bwd_plan`` sizes the scratch). ``robe_lookup_ref`` and
 ``robe_lookup_bwd_ref`` are the plain PyTorch versions they are held
 against.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,7 +24,69 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import robe_lookup_bwd_ref, robe_lookup_ref
 
 __all__ = ["robe_lookup_cuda", "robe_lookup_ref", "robe_lookup_bwd_cuda",
-           "robe_lookup_bwd_ref"]
+           "robe_lookup_bwd_ref", "bwd_plan"]
+
+#: slots of M a band of the backward's scatter spans, log2: 2^22 f32 slots
+#: are 16 MiB, a third of the H100's 50 MB L2 (kBandLog2 in
+#: csrc/robe_lookup_bwd.cu)
+BAND_LOG2 = 22
+#: most (band, field) buckets a launch sorts into (kMaxBuckets): the
+#: bucketing passes keep one counter a bucket in shared memory
+MAX_BUCKETS = 4096
+#: the longest run of elements a pair covers, log2 (kSegLog2): one warp
+MAX_SEG_LOG2 = 5
+#: blocks of the bucketing passes at most, and their threads (kSortBlocks,
+#: kSortThreads): each block counts and places one range of items
+SORT_BLOCKS, SORT_THREADS = 256, 512
+#: pairs a tile of the place pass orders in shared memory (kStagePairs):
+#: an item may span no more
+STAGE_PAIRS = 2048
+
+
+class BwdPlan(NamedTuple):
+    """What ``robe_lookup_bwd.cu``'s launcher derives from the shapes."""
+    seg_log2: int     # a pair's run of elements: W = 2^seg_log2 <= Z, 32
+    n_seg: int        # pairs an item can span
+    band_log2: int    # a pair's band: its first slot >> band_log2
+    n_bands: int
+    n_buckets: int    # n_bands * F
+    sort_blocks: int  # blocks of the bucketing passes
+    scratch_bytes: int
+
+
+def _align(n: int, a: int = 256) -> int:
+    return -(-n // a) * a
+
+
+def bwd_plan(spec: RobeSpec, n_fields: int, n_items: int,
+             dim: int) -> BwdPlan:
+    """The backward's plan for ``n_items`` (row, field) items of ``n_fields``
+    fields at width ``dim``: an item's elements are cut into pairs, runs of
+    at most W = min(Z, 32) elements aligned to W (so each lies in one ROBE
+    block); the pairs are bucketed by (band of M, field), with as many
+    bands of 2^BAND_LOG2 slots as |M| needs (wider bands when that would
+    pass MAX_BUCKETS), by up to SORT_BLOCKS blocks of SORT_THREADS items.
+    The scratch holds every block's count (then start) in every bucket, the
+    total, each pair's first slot and the sorted pairs (8 bytes each),
+    every part 256-byte aligned."""
+    lw = min(spec.log2_z, MAX_SEG_LOG2)
+    w = 1 << lw
+    if dim % w == 0:
+        n_seg = dim // w
+    elif w % dim == 0:
+        n_seg = 1
+    else:
+        n_seg = ((dim - 1) >> lw) + 2
+    band_log2 = BAND_LOG2
+    while (((spec.size - 1) >> band_log2) + 1) * n_fields > MAX_BUCKETS:
+        band_log2 += 1
+    n_bands = ((spec.size - 1) >> band_log2) + 1
+    nb = n_bands * n_fields
+    blocks = min(SORT_BLOCKS, -(-n_items // SORT_THREADS))
+    pairs = n_items * n_seg
+    scratch = _align(4 * nb * blocks) + 256 + _align(4 * pairs) + \
+        _align(8 * pairs)
+    return BwdPlan(lw, n_seg, band_log2, n_bands, nb, blocks, scratch)
 
 
 def robe_lookup_cuda(memory: torch.Tensor, rows: torch.Tensor, table_ids,
@@ -85,16 +151,23 @@ def robe_lookup_bwd_cuda(g: torch.Tensor, rows: torch.Tensor, table_ids,
         raise ValueError(f"{len(tids)} table ids for {f} fields")
     if dim < 1 or b * f >= 2 ** 31:
         raise ValueError(f"unsupported shape: B*F = {b * f}, dim = {dim}")
+    plan = bwd_plan(spec, f, b * f, dim)
+    if b * f * plan.n_seg >= 2 ** 31 or plan.n_seg > STAGE_PAIRS:
+        raise ValueError(f"too many (item, segment) pairs for one launch: "
+                         f"{b * f} items of {plan.n_seg}")
     code = _build.dtype_code(g)
     ws = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
     out = ws if g.dtype == torch.float32 else \
         torch.empty(spec.size, dtype=g.dtype, device=g.device)
     if b == 0:
         return out.zero_()
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=g.device)
     coeffs, tid_arr = _build.hash_args(spec, tids)
     err = _build.library().robe_lookup_bwd_launch(
-        g.data_ptr(), rows.data_ptr(), ws.data_ptr(), out.data_ptr(), b * f,
-        code, g.stride(0), g.stride(1), coeffs, tid_arr, f, dim, spec.log2_z,
+        g.data_ptr(), rows.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), plan.scratch_bytes, b * f, code, g.stride(0),
+        g.stride(1), coeffs, tid_arr, f, dim, spec.log2_z,
         int(spec.use_sign), _build.stream_ptr(g))
     _build.check("robe_lookup_bwd", err)
     robe_lookup_bwd_cuda.launches += 1

@@ -696,21 +696,182 @@ def test_backward_wrappers_refuse_cpu_tensors():
         tk.dot_interaction_bwd_cuda(torch.randn(2, 3), torch.randn(2, 3, 4))
 
 
+def _const(name: str, text: str) -> int:
+    import re
+    return int(re.search(r"constexpr [\w ]+ " + name + r" = (\w+);",
+                         text).group(1), 0)
+
+
 def test_dot_interaction_bwd_constants_match_the_kernel_source():
-    """The wrapper's shared-memory check repeats the kernel's layout."""
+    """The wrapper's plan repeats the kernel's layout: its constants are
+    the ones csrc/dot_interaction_bwd.cu and csrc/robe_common.cuh build
+    with, and its shared-memory bytes add up as the kernel's regions do."""
     import importlib
     import re
     from repro_torch.kernels import _build
     di = importlib.import_module("repro_torch.kernels.dot_interaction")
     src = (_build.CSRC / "dot_interaction_bwd.cu").read_text()
     common = (_build.CSRC / "robe_common.cuh").read_text()
-    assert int(re.search(r"kChunk = (\d+);", src).group(1)) == di.BWD_CHUNK
-    assert int(re.search(r"kRows = (\d+);", src).group(1)) == 4
+    assert _const("kMaxWin", src) == di.BWD_MAX_WIN
+    assert _const("kMaxThreads", src) == di.BWD_MAX_THREADS
+    assert _const("kRows", src) == 4
+    assert _const("kZero", src) == di.SYM_ZERO
+    assert _const("kDiag", src) == di.SYM_DIAG
     assert re.search(r"kSmemLimit = (\d+) \* 1024;", common).group(1) == \
         str(_build.MAX_SMEM // 1024)
-    # F = 27, D = 128: sym [27][28] and a [27][128] chunk, f32
-    assert di.bwd_smem_bytes(27, 128) == 4 * 27 * (28 + 128)
-    assert di.bwd_smem_bytes(3, 1000) == 4 * 3 * (4 + 128)
+    # F = 27, D = 128, f32: two stages of g's 351-entry row (+8, rounded to
+    # 16 bytes) and a [27][128] window, sym's [27][28] slice, the 16-bit
+    # map [27][28] rounded to 16 bytes
+    assert di.bwd_smem_bytes(27, 128) == \
+        2 * (1440 + 4 * 27 * 128) + 4 * 27 * 28 + 1520 == 35072
+    # bf16: rows 8 elements wider, and the widened f32 window
+    assert di.bwd_smem_bytes(27, 128, itemsize=2) == \
+        2 * (720 + 2 * 27 * 136) + 4 * 27 * 128 + 4 * 27 * 28 + 1520
+    # D past 128 is taken in windows of 128 columns
+    assert di.bwd_smem_bytes(3, 1000) == \
+        2 * (48 + 4 * 3 * 128) + 4 * 3 * 4 + 32
+
+
+@pytest.mark.parametrize("f,d,self_int,itemsize,want", [
+    # full width: one unit a sample, a thread per 4 x 4 tile (7 x 32)
+    (27, 128, False, 4, (2, 28, 128, 224, 35072)),
+    (27, 128, True, 2, (2, 28, 128, 224, 34624)),
+    # the quickstart's interaction: 2 x 4 tiles, one warp
+    (5, 16, False, 4, (2, 8, 16, 32, 1040)),
+    # D = 3 and 130: windows rounded up to 8 columns, at most 128
+    (2, 3, True, 4, (2, 4, 8, 32, 272)),
+    (9, 130, False, 4, (2, 12, 128, 96, 10224)),
+    # larger F: narrower column windows, then one stage and row windows
+    (120, 128, False, 4, (2, 120, 64, 256, 205024)),
+    (200, 128, False, 4, (1, 64, 16, 64, 223632)),
+    (235, 128, False, 4, (1, 4, 8, 32, 232224)),
+])
+def test_dot_interaction_bwd_plan_by_shape(f, d, self_int, itemsize, want):
+    from repro_torch.kernels.dot_interaction import bwd_plan
+    assert tuple(bwd_plan(f, d, self_int, itemsize)) == want
+
+
+def test_dot_interaction_bwd_plan_reports_a_shape_too_large():
+    """Past the largest F a block holds, the plan says so and the wrapper
+    raises before any launch; every F below it fits."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dot_interaction import bwd_plan
+    fits = [f for f in range(1, 300)
+            if bwd_plan(f, 128).smem <= _build.MAX_SMEM]
+    assert fits == list(range(1, 236))
+    assert bwd_plan(236, 128).smem > _build.MAX_SMEM
+
+
+@pytest.mark.parametrize("f", list(range(1, 34)))
+@pytest.mark.parametrize("self_int", (False, True))
+def test_bwd_sym_map_gathers_interaction_sym(f, self_int):
+    """Gathering g through the kernel's sym map (its Python mirror) gives
+    kernels/ref.py's interaction_sym: zero where the map says so, twice g
+    on the flagged diagonal."""
+    from repro_torch.kernels.dot_interaction import (SYM_DIAG, SYM_ZERO,
+                                                     bwd_sym_map)
+    n_pairs = f * (f + 1) // 2 if self_int else f * (f - 1) // 2
+    g = torch.from_numpy(np.random.RandomState(f).randn(3, n_pairs)
+                         .astype(np.float32))
+    np_ = -(-f // 4) * 4
+    m = torch.tensor(bwd_sym_map(f, self_int)).view(f, np_)
+    assert int(m.max()) <= (SYM_ZERO if f > 1 or self_int or np_ > f
+                            else 0)
+    zero, diag = m == SYM_ZERO, (m & SYM_DIAG).bool() & (m != SYM_ZERO)
+    idx = torch.where(zero, 0, m & ~SYM_DIAG).long()
+    if n_pairs:
+        assert int(idx.max()) < n_pairs
+        got = torch.where(zero, 0.0, g[:, idx] * torch.where(diag, 2.0, 1.0))
+    else:
+        got = torch.zeros(3, f, np_)
+    assert bool(diag.diagonal()[:f].all()) == self_int
+    want = tref.interaction_sym(g, f, self_int)
+    torch.testing.assert_close(got[:, :, :f], want, rtol=0, atol=0)
+    assert bool(zero[:, f:].all())
+
+
+def test_robe_lookup_bwd_constants_match_the_kernel_source():
+    """BAND_LOG2, MAX_BUCKETS and MAX_SEG_LOG2 of kernels/robe_lookup.py
+    are the constants csrc/robe_lookup_bwd.cu builds with."""
+    import importlib
+    from repro_torch.kernels import _build
+    rl = importlib.import_module("repro_torch.kernels.robe_lookup")
+    src = (_build.CSRC / "robe_lookup_bwd.cu").read_text()
+    assert _const("kBandLog2", src) == rl.BAND_LOG2
+    assert _const("kMaxBuckets", src) == rl.MAX_BUCKETS
+    assert _const("kSegLog2", src) == rl.MAX_SEG_LOG2
+    assert _const("kSortBlocks", src) == rl.SORT_BLOCKS
+    assert _const("kSortThreads", src) == rl.SORT_THREADS
+    assert _const("kStagePairs", src) == rl.STAGE_PAIRS
+    # 2^22 f32 slots a band: 16 MiB, a third of the H100's 50 MB L2
+    assert 4 << rl.BAND_LOG2 == 16 * 2 ** 20
+
+
+@pytest.mark.parametrize("size,f,items,dim,z,want", [
+    # full width: 7 bands of 2^22 slots, 4 pairs an item; 256 sort blocks'
+    # counts of 182 buckets, then 6,815,744 first slots and sorted pairs
+    (26_135_627, 26, 65536 * 26, 128, 32,
+     (5, 4, 22, 7, 182, 256, 186_368 + 256 + 27_262_976 + 54_525_952)),
+    # the quickstart: one band, one pair an item (d = 16 inside Z = 32)
+    (18_400, 4, 4096, 16, 32, (5, 1, 22, 1, 4, 8, 256 + 256 + 16384 +
+                                                   32768)),
+    # Z = 16 < d = 24: an item starts mid-block, so up to 3 pairs
+    (4096, 26, 509 * 26, 24, 16, (4, 3, 22, 1, 26, 26,
+                                  2816 + 256 + 158_976 + 317_696)),
+    # Z = 1: a pair an element; Z = 64 > 32: pairs of 32 inside a block
+    (4096, 3, 10, 40, 1, (0, 40, 22, 1, 3, 1, 256 + 256 + 1792 + 3328)),
+    (4096, 3, 10, 130, 64, (5, 6, 22, 1, 3, 1, 256 + 256 + 256 + 512)),
+    # a band edge inside M: 2^22 + 1 slots make two bands
+    (2 ** 22 + 1, 26, 26, 128, 32, (5, 4, 22, 2, 52, 1,
+                                    256 + 256 + 512 + 1024)),
+    # bands widen where bands x fields would pass MAX_BUCKETS
+    (2 ** 31 - 1, 128, 128, 128, 32, (5, 4, 26, 32, 4096, 1,
+                                      16384 + 256 + 2048 + 4096)),
+])
+def test_robe_lookup_bwd_plan(size, f, items, dim, z, want):
+    from repro_torch.kernels.robe_lookup import bwd_plan
+    spec = TRobeSpec(size=size, block_size=z, seed=0)
+    assert tuple(bwd_plan(spec, f, items, dim)) == want
+
+
+@pytest.mark.parametrize("dim,z", [(24, 16), (16, 16), (8, 32), (40, 1),
+                                   (128, 32), (130, 64), (3, 4)])
+def test_robe_lookup_bwd_pairs_cover_each_element_once(dim, z):
+    """The kernel's pairs, mirrored: item x's pair j starts at element
+    index k = ((x*d >> lw) + j) << lw of its table and covers the lanes
+    whose k + lane falls in [x*d, x*d + d); its slots are one run from the
+    slot of k, wrapped once at |M|.  The plan's n_seg pairs give every
+    element its robe_slots slot, exactly once."""
+    from repro_torch.core.robe import robe_slots
+    from repro_torch.kernels.robe_lookup import bwd_plan
+    spec = TRobeSpec(size=4099, block_size=z, seed=5)
+    tid = torch.zeros((1, 1), dtype=torch.int64)
+    rows = [0, 1, 2, 3, 7, 11, 4097, 9_999_991]
+
+    def slot_of(k):   # element k of table 0: row k at width 1
+        return int(robe_slots(spec, tid, torch.tensor([[k]],
+                                                      dtype=torch.int32),
+                              1)[0, 0, 0])
+    plan = bwd_plan(spec, 1, len(rows), dim)
+    w = 1 << plan.seg_log2
+    for x in rows:
+        want = robe_slots(spec, tid, torch.tensor([[x]], dtype=torch.int32),
+                          dim)[0, 0]
+        k0 = x * dim
+        seen = [0] * dim
+        for j in range(plan.n_seg):
+            start = ((k0 >> plan.seg_log2) + j) << plan.seg_log2
+            if start >= k0 + dim:
+                continue
+            first = slot_of(start)
+            for lane in range(w):
+                e = start + lane - k0
+                if 0 <= e < dim:
+                    seen[e] += 1
+                    s = first + lane
+                    assert int(want[e]) == (s - spec.size if s >= spec.size
+                                            else s), (x, j, lane)
+        assert seen == [1] * dim
 
 
 def test_kernel_sources_and_bindings_agree():

@@ -1,8 +1,8 @@
 """Split the time of the port's redesigned kernels into their parts.
 
-    python3 tools/kernel_split.py [--only di,sf,tt,rl,qb] [CSRC_DIR ...]
+    python3 tools/kernel_split.py [--only di,sf,tt,rl,qb,db,rb] [CSRC_DIR ...]
 
-Builds variants of five kernels from the sources in each CSRC_DIR (by
+Builds variants of seven kernels from the sources in each CSRC_DIR (by
 default ``src/repro_torch/kernels/csrc``; an older tree works too, e.g.
 from ``git archive <commit> src/repro_torch/kernels/csrc | tar -x -C
 build/old``), each as it is and with one part taken out:
@@ -19,7 +19,17 @@ build/old``), each as it is and with one part taken out:
   element's offset in its block, so the hash goes and every gather hits
   L1); stores only; plain stores instead of streaming ones, where used;
 - ``qrobe_lookup``: the same three, each timed without and, where the
-  launcher takes it, with the ``delta`` operand.
+  launcher takes it, with the ``delta`` operand;
+- ``dot_interaction_bwd``: the contraction skipped (one value per tile
+  is written from its first operands, so the staging loads stay live);
+- ``robe_lookup_bwd``: the atomics skipped (the walk, the hash and the
+  reads of g stay, their slot and value kept live by a store that never
+  fires); the atomics aimed at an L2-resident window of M (each slot
+  masked into its low 2^23 slots, 32 MiB), so that the cost of L2 misses
+  and that of contention show apart; where the launcher buckets the
+  pairs by band of M first, also the bucketing passes alone.  Each
+  ``robe_lookup_bwd`` call is timed with the zeroing of its |M| f32
+  workspace, as the wrapper does it, and the zeroing alone beside it.
 
 Each variant is compiled with nvcc into its own library under
 ``build/kernel_split/`` (all at once) and timed at B=512 and B=262144 on
@@ -27,9 +37,12 @@ the ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32, |M| = 26,135,627; int8
 codes with one f32 scale per 256 slots; TT factors (589, 589, 589), dims
 (2, 8, 8), rank 8) with CUDA events (median
 of 21 runs of 8 back-to-back launches), beside ``torch.bmm`` on the same
-[B, 27, 128] input.  Several CSRC_DIRs are timed in one process, in turns;
-``--only`` keeps the named kernels (di = dot_interaction, sf =
-serve_fused, tt = tt_lookup, rl = robe_lookup, qb = qrobe_lookup).
+[B, 27, 128] input; the two backwards at B=512 and B=65536 (the training
+batch), ``dot_interaction_bwd`` beside ``torch.bmm(sym, feats)``.
+Several CSRC_DIRs are timed in one process, in turns; ``--only`` keeps
+the named kernels (di = dot_interaction, sf = serve_fused, tt =
+tt_lookup, rl = robe_lookup, qb = qrobe_lookup, db =
+dot_interaction_bwd, rb = robe_lookup_bwd).
 Prints one JSON object, the card's name and power limit included.  The
 variants are made at run time and never kept in the repository.  Needs
 one CUDA card and nvcc.
@@ -139,6 +152,24 @@ QROBE_BLOCK = {
                    "runs[u][i] = QRun{};", 1)],
     "plainstore": PLAIN,
 }
+# dot_interaction_bwd: the first design's loop over j (a scalar of feats and
+# a float4 of sym a step), then the register-tiled contraction of
+# bwd_contract
+DB_PARTS = {
+    "nocontract": [(r"for \(int j = 0; j < n; \+\+j\) \{.*?acc\[3\] = "
+                    r"fmaf\([^;]*;\s*\}", "acc[0] = fs[d] + sj[0];", 1),
+                   (r"bwd_contract\(acc, ([^,]+), ([^,]+), [^;]*\);",
+                    r"acc[0][0] = (\1)[0] + (\2)[0];", 1)],
+}
+# robe_lookup_bwd: the atomic of the item-order walk, or of the band-ordered
+# scatter; kept live but never fired, or masked into the low 2^23 slots
+RB_SITE = re.compile(r"atomicAdd\(ws \+ (robe_chunk_slot\([^;]*?\)|\w+),"
+                     r"\s*(\w+)\);")
+RB_PARTS = {
+    "nored": r"{ const unsigned s_ = \1; if (__float_as_uint(\2) == "
+             r"0x7fc00001u) ws[s_] = \2; }",
+    "l2win": r"atomicAdd(ws + ((\1) & 0x7FFFFFu), \2);",
+}
 #: variant name -> (source, launcher, {generation: transforms} or flags)
 VARIANTS = {
     "di": ("dot_interaction.cu", {}),
@@ -160,10 +191,17 @@ VARIANTS = {
     "qb_nohash": ("qrobe_lookup.cu", {"part": "nohash"}),
     "qb_storeonly": ("qrobe_lookup.cu", {"part": "storeonly"}),
     "qb_plainstore": ("qrobe_lookup.cu", {"part": "plainstore"}),
+    "db": ("dot_interaction_bwd.cu", {}),
+    "db_nocontract": ("dot_interaction_bwd.cu", {"part": "nocontract"}),
+    "rb": ("robe_lookup_bwd.cu", {}),
+    "rb_nored": ("robe_lookup_bwd.cu", {"part": "nored"}),
+    "rb_l2win": ("robe_lookup_bwd.cu", {"part": "l2win"}),
+    "rb_bucketonly": ("robe_lookup_bwd.cu", {"part": "bucketonly"}),
 }
 LAUNCHERS = {"di": "dot_interaction_launch", "sf": "serve_fused_launch",
              "tt": "tt_lookup_launch", "rl": "robe_lookup_launch",
-             "qb": "qrobe_lookup_launch"}
+             "qb": "qrobe_lookup_launch", "db": "dot_interaction_bwd_launch",
+             "rb": "robe_lookup_bwd_launch"}
 QROBE_GROUP_LOG2 = 8
 
 
@@ -193,7 +231,19 @@ def variant(csrc: Path, tag: str, name: str, src: str, nogram=False,
     if nosign:
         text, k = SIGN.subn("(-1.f)", text)
         assert k >= 1, name
-    if part:
+    if part and src == "dot_interaction_bwd.cu":
+        pat, repl, _ = DB_PARTS[part][int("bwd_contract" in text)]
+        text = subst(text, [(pat, repl, 1)], name)
+    elif part and src == "robe_lookup_bwd.cu":
+        if part == "bucketonly":
+            # the band-ordered design's scatter launch dropped
+            if "rb_scatter_kernel" not in text:
+                return None
+            text = subst(text, [(r"rb_scatter_kernel<T><<<[^;]*;", ";", 1)],
+                         name)
+        else:
+            text = subst(text, [(RB_SITE.pattern, RB_PARTS[part], 1)], name)
+    elif part:
         if src == "tt_lookup.cu":
             rules = TT_RANKED if "tt_chain<" in text else TT_WARP
         elif src == "qrobe_lookup.cu":
@@ -276,13 +326,71 @@ def load(trees: dict, only) -> dict:
         argtypes = _build.SIGNATURES[name]
         older = n_params((trees[tag] / VARIANTS[k][0]).read_text(),
                          name) < len(argtypes)
-        if older:
+        if older and k.startswith("rb"):   # no scratch, scratch_bytes
+            argtypes = argtypes[:4] + argtypes[6:]
+        elif older:
             drop = 2 if k.startswith("qb") else len(argtypes) - 2
             argtypes = argtypes[:drop] + argtypes[drop + 1:]
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         fns[tag][k] = (fn, older)
     return fns
+
+
+def time_backwards(trees, res, spec, tids, gen, dev, s) -> None:
+    """The variants of the two backwards at B=512 and the training batch
+    B=65536, on the first zipf batches of the CTR stream (F=26 fields; the
+    interaction's 27 rows)."""
+    from repro_torch.kernels.ref import interaction_sym
+    from repro_torch.kernels.robe_lookup import bwd_plan
+    n = F + 1
+    p = n * (n - 1) // 2
+    ws = torch.empty(SIZE, device=dev)
+    scratch = torch.empty(0, dtype=torch.uint8, device=dev)
+    for b, n_in in ((512, 8), (65536, 2)):
+        stream = CtrStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
+                                         n_dense=13, batch_size=b, seed=0))
+        rows = [torch.from_numpy(stream.batch_at(100 + k)["sparse"]).to(dev)
+                for k in range(n_in)]
+        gs = [torch.randn((b, F, D), generator=gen, device=dev)
+              for _ in range(n_in)]
+        feats = [torch.randn((b, n, D), generator=gen, device=dev)
+                 for _ in range(n_in)]
+        gts = [torch.randn((b, p), generator=gen, device=dev)
+               for _ in range(n_in)]
+        dout = torch.empty((b, n, D), device=dev)
+        need = bwd_plan(spec, F, b * F, D).scratch_bytes
+        if scratch.numel() < need:
+            scratch = torch.empty(need, dtype=torch.uint8, device=dev)
+        co, ta = _build.hash_args(spec, tids)
+        res[f"zero_ws_{b}"] = device_ms(lambda: ws.zero_(), [()])
+        for k in VARIANTS:
+            if not k.startswith(("db", "rb")):
+                continue
+            for tag, (_, _, fns) in trees.items():
+                if k not in fns:
+                    continue
+                fn, older = fns[k]
+                key = f"{tag}_{k}_{b}"
+                if k.startswith("db"):
+                    res[key] = device_ms(
+                        lambda g, x, fn=fn: fn(g.data_ptr(), p, x.data_ptr(),
+                                               dout.data_ptr(), b, n, D, 0, 0,
+                                               s), list(zip(gts, feats)))
+                    continue
+                extra = () if older else (scratch.data_ptr(), scratch.numel())
+
+                def call(r, g, fn=fn, extra=extra):
+                    ws.zero_()
+                    err = fn(g.data_ptr(), r.data_ptr(), ws.data_ptr(),
+                             ws.data_ptr(), *extra, b * F, 0, F * D, D, co,
+                             ta, F, D, spec.log2_z, 0, s)
+                    assert err == 0, (k, err)
+                res[key] = device_ms(call, list(zip(rows, gs)))
+        syms = [interaction_sym(g, n, False) for g in gts]
+        res[f"bmm_sym_{b}"] = device_ms(torch.bmm, list(zip(syms, feats)))
+        del rows, gs, feats, gts, dout, syms
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -337,6 +445,8 @@ def main() -> int:
         out = torch.empty((b, (F + 1) * F // 2), device=dev)
         emb = torch.empty((b, F, D), device=dev)
         for k in VARIANTS:
+            if k.startswith(("db", "rb")):    # timed by time_backwards
+                continue
             for tag, (csrc, old, fns) in trees.items():
                 if k not in fns:
                     continue
@@ -393,6 +503,8 @@ def main() -> int:
                                     [(x,) for x in feats])
         del rows, feats, bots, out, emb
         torch.cuda.empty_cache()
+    if not only or only & {"db", "rb"}:
+        time_backwards(trees, res, spec, tids, gen, dev, s)
     print(json.dumps(res))
     return 0
 
