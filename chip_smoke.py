@@ -10,7 +10,7 @@ non-zero on failure:
 
 1. the card: ``nvidia-smi``'s name and power limit; the kernels' build
    (``nvcc`` for sm_90a, from ``src/repro_torch/kernels/csrc`` alone);
-2. each of the eight Hopper kernels against its plain PyTorch version on
+2. each of the eleven Hopper kernels against its plain PyTorch version on
    the card, at the paper's ``dlrm-criteo-tb`` widths (F=26, d=128, Z=32,
    |M| = 26,135,627 slots; QR m = 8,192; TT factors (589, 589, 589), dims
    (2, 8, 8), rank 8): ``robe_lookup`` and ``qrobe_lookup`` exactly
@@ -28,24 +28,37 @@ non-zero on failure:
    at the ragged shapes of its register tiling (F in 1..64, D in 1..130,
    B in 1..4099, with and without the diagonal) and ``serve_fused`` in the
    hash's general regime (Z = 16 with d = 24 and 40, bags of 3 with -1
-   pads and an empty bag); the two backward kernels: ``robe_lookup_bwd``
-   (the scatter-add into M, by f32 atomics in no fixed order) within
-   ``1e-5 · A + 1e-7`` in f32 and ``1e-2 · A`` in bf16 of each slot, ``A``
-   the same scatter of ``|g|``, at every ``ROBE_REGIMES`` (d, Z), f32 and
-   bf16, the sign on and off, B in 1, 509, 512, on a B = 65,536 zipf batch
-   from ``CtrStream`` (head rows repeat thousands of times), the same with
-   one field at a single row (a chain of 65,536), on 65,536 samples of
-   all-distinct rows, on rows that cross the wrap at |M| and rows whose
-   ROBE block straddles a band edge of the bucketed scatter, on a
-   cotangent with the strides autograd hands over, and on the
-   quickstart's 18,400-slot array (d = 16, Z = 32) under a batch of 1,024
-   of its stream; ``dot_interaction_bwd`` at full width (F = 27, D = 128)
+   pads and an empty bag); the five backward kernels, each a sum in no
+   fixed order, within ``1e-5 · A + 1e-7`` in f32 and ``1e-2 · A`` in
+   bf16 of each element, ``A`` the same backward of the inputs'
+   magnitudes: ``robe_lookup_bwd`` (the scatter-add into M) at every
+   ``ROBE_REGIMES`` (d, Z), f32 and bf16, the sign on and off, B in 1,
+   509, 512, on a B = 65,536 zipf batch from ``CtrStream`` (head rows
+   repeat thousands of times), the same with one field at a single row (a
+   chain of 65,536), on 65,536 samples of all-distinct rows, on rows that
+   cross the wrap at |M| and rows whose ROBE block straddles a band edge
+   of the bucketed scatter, on a cotangent with the strides autograd hands
+   over, and on the quickstart's 18,400-slot array (d = 16, Z = 32) under
+   a batch of 1,024 of its stream; ``qrobe_lookup_bwd`` (the scales' and
+   delta's gradients) at every ``ROBE_REGIMES`` (d, Z) and B in 1, 509,
+   512, on the zipf batch, on wrap rows and on an array whose last scale
+   group (5 slots) is shorter than Z; ``qr_lookup_bwd`` at B in 1, 509,
+   512 and on the zipf batch (13 fields of a single quotient row), g
+   contiguous and at the concat's strides; ``tt_lookup_bwd`` at full
+   width, off 16-byte alignment, on the zipf batch and on it with one
+   field at a single id, and at ``TT_SHAPES``; ``serve_fused``'s backward
+   (composed of ``robe_lookup``, ``dot_interaction_bwd`` and
+   ``robe_lookup_bwd``) at the forward's shapes, dM and dbot; each in f32
+   and bf16; ``dot_interaction_bwd`` at full width (F = 27, D = 128)
    at B = 512, 509 and the training batch 65,536, at the quickstart's
    (B = 1,024, F = 5, D = 16), at the forward's ragged shapes, and at B =
    1, 2 with D = 1, 3, 130 (4-byte copies), F = 1, 2, 27 and the largest
    F of each stage count at D = 128 up to the largest the wrapper takes,
    with g at the concat's row stride too, with and without the diagonal,
-   within rtol = atol = 1e-5 in f32 and 1e-2 in bf16;
+   within rtol = atol = 1e-5 in f32 and 1e-2 in bf16; then the ops'
+   backwards through autograd with their launch counts (``serve_fused``:
+   one each of its three kernels; ``qrobe_lookup`` without and with
+   ``delta``);
 3. the main paths at full width, each answering four padded batches of
    512 requests (one with n_valid < 512) with every kernel's launch count
    set to 0 before the path and read after it:
@@ -57,32 +70,40 @@ non-zero on failure:
    launch); the scores must be finite, the two robe paths must agree within
    rtol = atol = 1e-4, and every path must agree as closely with the same
    entry point run on the CPU (the plain versions);
-   then the training path, through ``train_loop.build_train_step``,
-   ``init_state`` and ``run`` with ``models.recsys.loss_fn``: (a) the
-   quickstart config (4 fields, dim 16, 100x ROBE, batch 1024), 400
-   adagrad steps (lr 0.08) from the port's own init (seed 0) on the card,
+   then the training path of ``robe``, ``qrobe``, ``hashed`` and ``tt``,
+   through ``train_loop.build_train_step``, ``init_state`` and ``run``
+   with ``models.recsys.loss_fn`` (and ``make_project_fn`` for qrobe):
+   (a) the quickstart config (4 fields, dim 16, 100x ROBE, batch 1024)
+   with the substrate, adagrad (lr 0.08; qrobe 0.05), 400 steps for robe
+   and 100 for the others, from the port's own init (seed 0) on the card,
    each step's loss within 2e-3 of the CPU step's from the same state and
-   each param leaf's updates within 1e-3 of their norm over the run, then
-   the CPU's own 400 steps, the two held-out AUCs (steps 5000-5007)
-   within 2e-3; (b) full ``dlrm-criteo-tb`` width: three SGD
-   steps at B = 512, params after each within rtol = atol = 1e-4 of the
-   CPU run and each leaf's change since the start within 1e-3 of its
-   norm, then five adagrad steps at B = 65,536 with finite losses and
-   exactly one launch a step of ``robe_lookup``, ``robe_lookup_bwd``,
-   ``dot_interaction`` and ``dot_interaction_bwd`` and none of the others;
-   every run with no restart and no non-finite loss;
+   each param leaf's update read step by step (``UpdateErr``: each leaf's
+   median within 1e-4 of its norm, and a leaf above 1e-3 in at most 1% of
+   the steps, each such step printed); qrobe's step is read before its
+   ``project`` (codes, scales and ``delta`` as leaves), then ``project``
+   runs on the card's array on the card and on the CPU, which must agree
+   bit for bit, ``delta`` zero after it; for robe then the CPU's own run,
+   the two held-out AUCs (steps 5000-5007) within 2e-3; (b) full ``dlrm-criteo-tb`` width: three SGD steps at
+   B = 512, params after each within rtol = atol = 1e-4 of the CPU run and
+   (robe, hashed, tt) each leaf's change since the start within 1e-3 of
+   its norm, then each card step again from the CPU's state, read as in
+   (a); then five adagrad steps at B = 65,536 with finite losses and
+   exactly one launch a step of the substrate's lookup and its backward,
+   ``dot_interaction`` and ``dot_interaction_bwd``, and none of the
+   others; every run with no restart and no non-finite loss;
 4. times with CUDA events (median of 21 repetitions, launches queued behind
-   a sleep kernel so the host does not starve the card): each kernel at
-   B=512 and B=262144 beside its bound (``qrobe_lookup`` also with the
-   params' ``delta``, whose bound adds a 4-byte read per touched slot),
-   the backward kernels at B=512 and B=65536 (the training batch), each
-   plain version at B=512,
+   a sleep kernel so the host does not starve the card): each forward
+   kernel at B=512 and B=262144 beside its bound (``qrobe_lookup`` also
+   with the params' ``delta``, whose bound adds a 4-byte read per touched
+   slot), each backward kernel at B=512 and B=65536 (the training batch,
+   with its passes by ``torch.profiler``), ``serve_fused``'s backward at
+   B=512, each plain version at B=512,
    ``torch.bmm`` as the library yardstick of ``dot_interaction`` and of its
    backward, and ``score`` end to end for every path; plus a
    ``torch.profiler`` breakdown of ``score`` at B=262144 by device kernel
    for every path, with the card's busy share of the window; and one
-   full-width adagrad training step at B=65536 (host clock, median) with
-   its own breakdown;
+   full-width adagrad training step at B=65536 of every substrate (host
+   clock, median) with its own breakdown;
 5. one JSON line of kernel numbers, then, last, the ok line.
 """
 
@@ -91,6 +112,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -110,20 +132,26 @@ from repro_torch.data import (CtrDataConfig, CtrStream,
                               RequestStream)
 from repro_torch.kernels import (_build, dot_interaction_bwd_cuda,
                                  dot_interaction_cuda, launch_counts,
-                                 qr_lookup_cuda, qrobe_lookup_cuda,
+                                 qr_lookup_bwd_cuda, qr_lookup_cuda,
+                                 qrobe_lookup_bwd_cuda, qrobe_lookup_cuda,
                                  reset_launches, robe_lookup_bwd_cuda,
                                  robe_lookup_cuda, serve_fused_cuda,
-                                 tt_lookup_cuda)
+                                 tt_lookup_bwd_cuda, tt_lookup_cuda)
 from repro_torch.kernels.dot_interaction import bwd_plan as di_bwd_plan
 from repro_torch.kernels.ref import (dot_interaction_bwd_ref,
                                      dot_interaction_ref, interaction_sym,
-                                     qr_indices, qr_lookup_ref,
-                                     qrobe_lookup_ref, robe_lookup_bwd_ref,
-                                     robe_lookup_ref, serve_fused_ref,
-                                     tt_indices, tt_lookup_ref)
+                                     qr_indices, qr_lookup_bwd_ref,
+                                     qr_lookup_ref, qrobe_dequant_ref,
+                                     qrobe_lookup_bwd_ref, qrobe_lookup_ref,
+                                     robe_lookup_bwd_ref, robe_lookup_ref,
+                                     serve_fused_bwd_ref, serve_fused_ref,
+                                     tt_indices, tt_lookup_bwd_ref,
+                                     tt_lookup_ref)
+from repro_torch.kernels import ops
 from repro_torch.kernels.robe_lookup import bwd_plan
+from repro_torch.kernels.serve_fused import serve_fused_bwd_cuda
 from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
-                                       loss_fn)
+                                       loss_fn, make_project_fn)
 from repro_torch.nn.embedding_backends.hashed import (default_buckets,
                                                       qr_layout)
 from repro_torch.nn.embedding_backends.qrobe import GROUP_LOG2
@@ -167,17 +195,37 @@ QS_VOCABS = (40_000, 10_000, 60_000, 5_000)
 QS_DIM, QS_BATCH = 16, 1024
 QS_STEPS, QS_LOSS_TOL, QS_AUC_TOL = 400, 2e-3, 2e-3
 TRAIN_TOL = 1e-4                      # full-width SGD params, card vs CPU
-#: each param leaf's updates, card against the CPU (``UpdateErr``:
-#: sqrt(Σ|Δcard - Δcpu|² / Σ|Δcpu|²)): the quickstart's over its 400
-#: steps from the same state, the full-width SGD run's since its start.
-#: Summation order alone reads 2.4e-6 (the port against the JAX package
-#: on the CPU, tests/test_torch_train.py) and, card against CPU on an
-#: NVIDIA H100 80GB HBM3 at 700 W, up to 7.4e-7 on the quickstart and
-#: 3.6e-5 after three free SGD steps at full width; a zero gradient reads 1
+#: each param leaf's update, card against the CPU from the same state
+#: (``UpdateErr``: |Δcard - Δcpu| / |Δcpu|, norms over the leaf).  The
+#: quickstart runs read it step by step: each leaf's median over the steps
+#: must be within UPDATE_MEDIAN_TOL, and at most UPDATE_FLAG_SHARE of the
+#: steps may have any leaf above UPDATE_TOL (each such step is printed).
+#: One step whose ReLU input, or adagrad's first touch of a slot, sits
+#: within rounding of 0 can read far above UPDATE_TOL while the run is
+#: sound; a zeroed, mis-signed or mis-slotted gradient reads about 1 on
+#: every step.  The full-width SGD run reads its change since the start,
+#: each step within UPDATE_TOL.  Summation order alone reads 2.4e-6 (the
+#: port against the JAX package on the CPU, tests/test_torch_train.py)
+#: and, card against CPU on an NVIDIA H100 80GB HBM3 at 700 W, about 7.5e-7
+#: on the quickstart and 3.6e-5 after three free SGD steps at full width
 UPDATE_TOL = 1e-3
-#: the kernels of a training step, each launched once a step
-TRAIN_KERNELS = ("robe_lookup", "robe_lookup_bwd", "dot_interaction",
-                 "dot_interaction_bwd")
+UPDATE_MEDIAN_TOL = 1e-4
+UPDATE_FLAG_SHARE = 0.01
+#: the compressed substrates' quickstart runs: steps and adagrad lr (qrobe
+#: at tests/test_qrobe.py's 0.05)
+SUB_QS_STEPS = 100
+SUB_QS_LR = {"qrobe": 0.05, "hashed": 0.08, "tt": 0.08}
+#: the kernels of a training step of each substrate, each launched once a
+#: step
+TRAIN_KERNELS = {
+    kind: (lookup, lookup + "_bwd", "dot_interaction", "dot_interaction_bwd")
+    for kind, lookup in (("robe", "robe_lookup"),
+                         ("qrobe", "qrobe_lookup"), ("hashed", "qr_lookup"),
+                         ("tt", "tt_lookup"))}
+#: the backwards of the compressed substrates' lookups and of serve_fused
+#: (composed of robe_lookup, dot_interaction_bwd and robe_lookup_bwd)
+SUBSTRATE_BWD = ("qrobe_lookup_bwd", "qr_lookup_bwd", "tt_lookup_bwd",
+                 "serve_fused_bwd")
 REPS = 21
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
 #: the H100 SXM data sheet's peaks
@@ -207,6 +255,15 @@ KERNELS = {
     "dot_interaction_bwd": dict(
         source="src/repro_torch/kernels/csrc/dot_interaction_bwd.cu",
         replaces="src/repro/kernels/ops.py:159"),
+    "qrobe_lookup_bwd": dict(
+        source="src/repro_torch/kernels/csrc/qrobe_lookup_bwd.cu",
+        replaces="src/repro/kernels/ops.py:120"),
+    "qr_lookup_bwd": dict(
+        source="src/repro_torch/kernels/csrc/qr_lookup_bwd.cu",
+        replaces="src/repro/kernels/ops.py:279"),
+    "tt_lookup_bwd": dict(
+        source="src/repro_torch/kernels/csrc/tt_lookup_bwd.cu",
+        replaces="src/repro/kernels/ops.py:322"),
 }
 
 
@@ -297,7 +354,8 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
     """Max abs error of each kernel against its plain version, per dtype:
     {kernel: {"float32": e, "bfloat16": e}}.  ``subs`` is the server of the
     compressed substrates, whose full-width params the lookups read."""
-    err = {k: {"float32": 0.0, "bfloat16": 0.0} for k in KERNELS}
+    err = {k: {"float32": 0.0, "bfloat16": 0.0}
+           for k in (*KERNELS, "serve_fused_bwd")}
 
     def record(k, got, want):
         key = str(got.dtype).removeprefix("torch.")
@@ -462,6 +520,11 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
         require(got.shape == (0, F, D), f"B=0 gave {tuple(got.shape)}")
     err["robe_lookup_bwd"]["over_a"] = check_backwards(
         gen, spec, dev, robe_rows, di_cases, record)
+    over = check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
+                                     record)
+    for k, v in over.items():
+        err[k]["over_a"] = v
+    check_op_backwards(gen, spec, subs, rows, dev)
     return err
 
 
@@ -475,6 +538,233 @@ def scatter_err(got, want, a, dtype) -> float:
     require(bad == 0, f"{bad} slots outside the scatter bound: max err "
             f"{float(err.max())}")
     return float((err / a.clamp_min(1e-30)).max())
+
+
+def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
+                              record) -> dict:
+    """Phase 2 for the backwards of the compressed substrates' lookups and
+    of ``serve_fused``, beside their plain versions; returns each one's
+    largest |error| / A per dtype.  Every gradient is a sum in no fixed
+    order, held within ``SCATTER_TOL`` of the plain version element by
+    element, ``A`` the same backward of the inputs' magnitudes (|g|,
+    |code|, |Q|, |R|, the cores', M's and bot's), sign off."""
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in SUBSTRATE_BWD}
+    tids = tuple(range(F))
+
+    def held(k, got, want, a, what):
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{k} {what}: {got.dtype} {tuple(got.shape)}, expected "
+                f"{want.dtype} {tuple(want.shape)}")
+        try:
+            e = scatter_err(got, want, a, got.dtype)
+        except SmokeFailure as exc:
+            raise SmokeFailure(f"{k} {what}: {exc}") from None
+        key = str(got.dtype).removeprefix("torch.")
+        worst[k][key] = max(worst[k][key], e)
+        record(k, got, want)
+
+    zipf = bulk_inputs(gen, dev, B_TRAIN, 1)[0]
+    # ids in the vocabularies; the qrobe lookup also takes a row of 2^31 - 1
+    small = [(rows[:b], f"B={b}") for b in PHASE2_BATCHES]
+    dtypes = (torch.float32, torch.bfloat16)
+
+    # qrobe_lookup_bwd: every regime of the block hash at B = 1, 509, 512;
+    # the zipf training batch; rows that cross the wrap at |M| inside the
+    # partial last scale group; an array whose last group (5 slots) is
+    # shorter than Z
+    qp = subs.params("qrobe")["embedding"]
+    qspec = subs.recsys_config("qrobe").embedding_spec().robe
+    short = dataclasses.replace(qspec, size=(1 << 20) + 5)
+    short_codes = torch.randint(-127, 128, (short.size,), generator=gen,
+                                device=dev, dtype=torch.int8)
+    cases = [(robe_rows[:b], dataclasses.replace(qspec, block_size=z,
+                                                 use_sign=sg),
+              dim, qp["codes"], f"B={b} Z={z} d={dim}")
+             for (dim, z), sg, b in itertools.product(
+                 ROBE_REGIMES, (False, True), PHASE2_BATCHES)]
+    for sg in (False, True):
+        cases += [
+            (zipf, dataclasses.replace(qspec, use_sign=sg), D, qp["codes"],
+             f"zipf B={B_TRAIN}"),
+            (wrap_rows(gen, qspec, dev), dataclasses.replace(
+                qspec, use_sign=sg), D, qp["codes"], "wrap rows"),
+            (wrap_rows(gen, short, dev), dataclasses.replace(
+                short, use_sign=sg), D, short_codes,
+             f"|M| = {short.size}, wrap rows")]
+    for (idx, sp, dim, codes, what), dt in itertools.product(cases, dtypes):
+        g = torch.randn(tuple(idx.shape) + (dim,), generator=gen,
+                        device=dev).to(dt)
+        gs, gd = qrobe_lookup_bwd_cuda(g, codes, idx, tids, dim, sp,
+                                       GROUP_LOG2)
+        ws, wd = qrobe_lookup_bwd_ref(g, codes, idx, tids, dim, sp,
+                                      GROUP_LOG2)
+        a_s, a_d = qrobe_lookup_bwd_ref(
+            g.abs().float(), codes.abs(), idx, tids, dim,
+            dataclasses.replace(sp, use_sign=False), GROUP_LOG2)
+        tag = f"{what} sign={sp.use_sign} {dt}"
+        held("qrobe_lookup_bwd", gs, ws, a_s, f"scale grad {tag}")
+        held("qrobe_lookup_bwd", gd, wd, a_d, f"delta grad {tag}")
+    del cases, short_codes
+    torch.cuda.synchronize()
+
+    # qr_lookup_bwd: the full-width tables at B = 1, 509, 512 and on the
+    # zipf batch (13 fields of a single Q row: chains of B), g also at the
+    # strides of the model's concat
+    hp = subs.params("hashed")["embedding"]
+    q_off, r_off, m = qr_args(subs)
+    for (idx, what), dt, strided in itertools.product(
+            small + [(zipf, f"zipf B={B_TRAIN}")], dtypes, (False, True)):
+        q, r = hp["q_table"].to(dt), hp["r_table"].to(dt)
+        g = torch.randn((idx.shape[0], F + 1, D), generator=gen,
+                        device=dev).to(dt)
+        g = g[:, 1:] if strided else g[:, 1:].contiguous()
+        got = qr_lookup_bwd_cuda(g, q, r, idx, q_off, r_off, m)
+        want = qr_lookup_bwd_ref(g, q, r, idx, q_off, r_off, m)
+        a = qr_lookup_bwd_ref(g.abs().float(), q.abs().float(),
+                              r.abs().float(), idx, q_off, r_off, m)
+        for name, x, y, z in zip(("dQ", "dR"), got, want, a):
+            held("qr_lookup_bwd", x, y, z,
+                 f"{name} {what} strided={strided} {dt}")
+        del g, got, want, a
+    torch.cuda.synchronize()
+
+    # tt_lookup_bwd: the full-width cores (the forward's rank-8 instance)
+    # and the same cores off 16-byte alignment, at B = 1, 509, 512, on the
+    # zipf batch and on it with one field at a single id (every item of the
+    # field shares i1, i2 and i3); narrow cores at each TT_SHAPES; rows too
+    # wide to stage
+    tp = subs.params("tt")["embedding"]
+    offsets, factors = tt_args(subs)
+    n1, n2, n3 = factors
+    chain = zipf.clone()
+    chain[:, 5] = 12345
+    wide = [tp["core0"], tp["core1"], tp["core2"]]
+    tt_cases = [("full width", wide, D, idx, what)
+                for idx, what in small + [(zipf, f"zipf B={B_TRAIN}"),
+                                          (chain, "one id in field 5")]]
+    tt_cases.append(("unaligned", wide, D, rows[:509], "B=509"))
+    for dim, rank in TT_SHAPES:
+        d1, d2, d3 = factor_dim(dim)
+        cores = [torch.randn(shape, generator=gen, device=dev) for shape in
+                 ((n1, d1, rank), (n2, rank, d2, rank), (n3, rank, d3))]
+        tt_cases += [(f"rank {rank} d={dim}", cores, dim, idx, what)
+                     for idx, what in small]
+    # rows of 64,000 elements at rank 1, which a block of the walk cannot
+    # stage: g's row is read through L1 (tt_lookup.bwd_plan)
+    cores = [torch.randn(shape, generator=gen, device=dev) for shape in
+             ((n1, 8, 1), (n2, 1, 8, 1), (n3, 1, 1000))]
+    tt_cases += [("rank 1 d=64000", cores, 64000, rows[:b], f"B={b}")
+                 for b in (1, 2)]
+    for (name, cores, dim, idx, what), dt in itertools.product(tt_cases,
+                                                               dtypes):
+        c = [x.to(dt) for x in cores]
+        if name == "unaligned":   # one element past an aligned start
+            c = [torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
+                 .view(x.shape).copy_(x) for x in c]
+        g = torch.randn((idx.shape[0], F, dim), generator=gen,
+                        device=dev).to(dt)
+        got = tt_lookup_bwd_cuda(g, *c, idx, offsets, factors)
+        want = tt_lookup_bwd_ref(g, *c, idx, offsets, factors)
+        a = tt_lookup_bwd_ref(g.abs().float(), *(x.abs().float() for x in c),
+                              idx, offsets, factors)
+        for k, (x, y, z) in enumerate(zip(got, want, a)):
+            held("tt_lookup_bwd", x, y, z, f"core{k} {name} {what} {dt}")
+        del g, c, got, want, a
+    del chain, zipf
+    torch.cuda.synchronize()
+
+    # serve_fused's backward (robe_lookup, dot_interaction_bwd and
+    # robe_lookup_bwd composed) at the forward's shapes: full width, then
+    # the hash's general regime with bags of 3, -1 pads and an empty bag
+    memory = subs_memory(subs)
+    sf_cases = [(rows, D, spec)]
+    for dim, z in ((D, 32), (24, 16), (40, 16)):
+        bag3 = random_rows(gen, (509, F, 3), dev)
+        pad = torch.rand((509, F, 3), generator=gen, device=dev) < 0.3
+        bag3 = torch.where(pad, torch.full_like(bag3, -1), bag3)
+        bag3[0, 0, :] = -1                                  # an empty bag
+        sf_cases.append((bag3.contiguous(), dim,
+                         dataclasses.replace(spec, block_size=z)))
+    for (idx, dim, base), dt, sg in itertools.product(sf_cases, dtypes,
+                                                       (False, True)):
+        b = idx.shape[0]
+        sp = dataclasses.replace(base, use_sign=sg)
+        bot = torch.randn((b, dim), generator=gen, device=dev).to(dt)
+        g = torch.randn((b, (F + 1) * F // 2), generator=gen,
+                        device=dev).to(dt)
+        got = serve_fused_bwd_cuda(g, memory, idx, bot, tids, dim, sp)
+        want = serve_fused_bwd_ref(g, memory, idx, bot, tids, dim, sp)
+        a = serve_fused_bwd_ref(g.abs().float(), memory.abs(), idx,
+                                bot.abs().float(), tids, dim,
+                                dataclasses.replace(sp, use_sign=False))
+        tag = f"idx={tuple(idx.shape)} d={dim} Z={sp.block_size} sign={sg}"
+        held("serve_fused_bwd", got[0], want[0], a[0], f"dM {tag} {dt}")
+        held("serve_fused_bwd", got[1], want[1], a[1],
+             f"dbot {tag} {dt}")
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_op_backwards(gen, spec, subs, rows, dev) -> None:
+    """The ops' backwards through autograd on the card, beside the plain
+    versions, with the kernels each launches: ``serve_fused``'s (one
+    ``robe_lookup``, ``dot_interaction_bwd`` and ``robe_lookup_bwd``, no
+    other) and ``qrobe_lookup``'s without and with ``delta``."""
+    tids = tuple(range(F))
+    b = rows.shape[0]
+    memory = subs_memory(subs).requires_grad_(True)
+    bot = torch.randn((b, D), generator=gen, device=dev, requires_grad=True)
+    ct = torch.randn((b, (F + 1) * F // 2), generator=gen, device=dev)
+    reset_launches()
+    out = ops.serve_fused(memory, rows, bot, tids, D, spec)
+    gm, gb = torch.autograd.grad((out * ct).sum(), (memory, bot))
+    torch.cuda.synchronize()
+    c = launch_counts()
+    need = ("serve_fused", "robe_lookup", "dot_interaction_bwd",
+            "robe_lookup_bwd")
+    require(all(n == (1 if k in need else 0) for k, n in c.items()),
+            f"serve_fused's forward and backward launched {c}")
+    with torch.no_grad():
+        want = serve_fused_bwd_ref(ct, memory, rows, bot, tids, D, spec)
+        a = serve_fused_bwd_ref(ct.abs(), memory.abs(), rows, bot.abs(),
+                                tids, D,
+                                dataclasses.replace(spec, use_sign=False))
+    for x, y, z in zip((gm, gb), want, a):
+        scatter_err(x, y, z, torch.float32)
+    del memory, gm, want, a
+
+    qp = subs.params("qrobe")["embedding"]
+    qspec = subs.recsys_config("qrobe").embedding_spec().robe
+    ct = torch.randn((b, F, D), generator=gen, device=dev)
+    for with_delta in (False, True):
+        scale = qp["scale"].clone().requires_grad_(True)
+        delta = qp["delta"].clone().requires_grad_(True) if with_delta \
+            else None
+        reset_launches()
+        out = ops.qrobe_lookup(qp["codes"], scale, rows, tids, D, qspec,
+                               GROUP_LOG2, delta=delta)
+        grads = torch.autograd.grad(
+            (out * ct).sum(), (scale, delta) if with_delta else (scale,))
+        torch.cuda.synchronize()
+        c = launch_counts()
+        require(all(n == (1 if k in ("qrobe_lookup", "qrobe_lookup_bwd")
+                          else 0) for k, n in c.items()),
+                f"qrobe_lookup's forward and backward launched {c}")
+        want = qrobe_lookup_bwd_ref(ct, qp["codes"], rows, tids, D, qspec,
+                                    GROUP_LOG2)
+        a = qrobe_lookup_bwd_ref(ct.abs(), qp["codes"].abs(), rows, tids, D,
+                                 dataclasses.replace(qspec, use_sign=False),
+                                 GROUP_LOG2)
+        for x, y, z in zip(grads, want, a):
+            scatter_err(x, y, z, torch.float32)
+    torch.cuda.synchronize()
+
+
+def subs_memory(subs) -> torch.Tensor:
+    """A full-width f32 ROBE array for serve_fused's backward: the qrobe
+    substrate's dequantized codes."""
+    qp = subs.params("qrobe")["embedding"]
+    return qrobe_dequant_ref(qp["codes"], qp["scale"], GROUP_LOG2)
 
 
 def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
@@ -719,11 +1009,11 @@ def substrate_paths(subs) -> dict:
     return counts
 
 
-def quickstart_config() -> RecsysConfig:
+def quickstart_config(kind: str = "robe") -> RecsysConfig:
     return RecsysConfig(
         name="quickstart", arch="dlrm", n_dense=4, bot_mlp=(32, QS_DIM),
         top_mlp=(32, 1), embed_dim=QS_DIM, vocab_sizes=QS_VOCABS,
-        embedding="robe", robe_size=sum(QS_VOCABS) * QS_DIM // 100,
+        embedding=kind, robe_size=sum(QS_VOCABS) * QS_DIM // 100,
         robe_block=32)
 
 
@@ -738,14 +1028,16 @@ def quickstart_rows(dev) -> torch.Tensor:
 
 
 def train_run(cfg: RecsysConfig, params, opt: OptimizerConfig, batch_at,
-              n_steps: int, step_hook=None):
+              n_steps: int, step_hook=None, project=None):
     """``run`` of ``n_steps`` from ``params`` (on their device) through
-    the port's entry points; ``step_hook(step_fn)`` may wrap the step."""
+    the port's entry points, with the post-step ``project`` (qrobe's
+    requantization, ``make_project_fn``) if given; ``step_hook(step_fn)``
+    may wrap the step."""
     optimizer = make_optimizer(opt)
     # no restarts: a step that raises on the card fails the smoke
     tc = TrainConfig(max_restarts=0)
     step_fn = build_train_step(lambda p, b: loss_fn(p, cfg, b), optimizer,
-                               tc)
+                               tc, project=project)
     if step_hook is not None:
         step_fn = step_hook(step_fn)
     rep = run(init_state(params, optimizer, tc), step_fn, batch_at,
@@ -770,38 +1062,105 @@ def leaf_names(tree, prefix: str = "") -> list:
 
 
 class UpdateErr:
-    """Per param leaf, the card's update (new - old) against the CPU's:
-    ``rel()`` gives sqrt(Σ|Δcard - Δcpu|² / Σ|Δcpu|²) over every ``add``.
-    A backward that left a leaf's gradient zero reads 1 there; summation
-    order alone reads ~1e-7."""
+    """Per param leaf, the card's update (new - old) against the CPU's from
+    the same state.  ``add`` reads one step: |Δcard - Δcpu| / |Δcpu| (norms
+    over the leaf) per leaf; ``check`` holds each leaf's median over the
+    steps within UPDATE_MEDIAN_TOL and lets at most UPDATE_FLAG_SHARE of
+    the steps have any leaf above UPDATE_TOL, printing each such step.
+    ``rel()`` is the whole run's sqrt(Σ|Δcard - Δcpu|² / Σ|Δcpu|²) per leaf,
+    kept as information.  A backward that left a leaf's gradient zero reads
+    1 there; summation order alone reads ~1e-7."""
 
     def __init__(self, params):
         self.names = leaf_names(params)
         self.diff = [0.0] * len(self.names)
         self.norm = [0.0] * len(self.names)
+        self.steps = []          # per step: {leaf: reading}
+        self.flagged = []        # the readings above UPDATE_TOL
 
     def add(self, old, card, cpu) -> None:
-        for i, (o, c, h) in enumerate(zip(leaves(old), leaves(card),
-                                          leaves(cpu))):
+        row = {}
+        for i, (name, o, c, h) in enumerate(zip(
+                self.names, leaves(old), leaves(card), leaves(cpu))):
             want = h.double() - o.double()
-            self.diff[i] += float(((c.cpu().double() - o.double())
-                                   - want).square().sum())
-            self.norm[i] += float(want.square().sum())
+            d = (c.cpu().double() - o.double()) - want
+            dn, wn = float(d.square().sum()), float(want.square().sum())
+            self.diff[i] += dn
+            self.norm[i] += wn
+            r = (dn / wn) ** 0.5 if wn > 0 else (0.0 if dn == 0 else 1.0)
+            row[name] = r
+            if r > UPDATE_TOL:
+                self.flagged.append({
+                    "step": len(self.steps), "leaf": name, "reading": r,
+                    "elements": int((d.abs() > 1e-3 * wn ** 0.5).sum())})
+        self.steps.append(row)
 
     def rel(self) -> dict:
         return {n: (d / w) ** 0.5 if w > 0 else (0.0 if d == 0 else 1.0)
                 for n, d, w in zip(self.names, self.diff, self.norm)}
 
+    def medians(self) -> dict:
+        return {n: statistics.median(row[n] for row in self.steps)
+                for n in self.steps[0]}
 
-def quickstart_path() -> dict:
-    """(a): examples/quickstart.py's run on the card from the port's own
-    init (seed 0), each step shadowed by the CPU step from the same state;
-    then the CPU's own run from the same params.
+    def check(self, what: str, median: bool = True) -> dict:
+        """Fails unless the per-step reading holds (without ``median``,
+        only its bound on the flagged steps); returns its summary."""
+        for f in self.flagged:
+            print(f"{what}: step {f['step']} {f['leaf']} update reads "
+                  f"{f['reading']:.3e} of its norm ({f['elements']} "
+                  f"elements off by more than 1e-3 of it)")
+        med = self.medians()
+        bad = sorted({f["step"] for f in self.flagged})
+        most = math.ceil(UPDATE_FLAG_SHARE * len(self.steps))
+        require(not median or max(med.values()) <= UPDATE_MEDIAN_TOL,
+                f"{what}: a leaf's median update reading is above "
+                f"{UPDATE_MEDIAN_TOL}: {med}")
+        require(len(bad) <= most,
+                f"{what}: {len(bad)} of {len(self.steps)} steps have a leaf "
+                f"above {UPDATE_TOL} (at most {most}): steps {bad}")
+        return {"median": med, "max_median": max(med.values()),
+                "flagged_steps": bad, "flagged": self.flagged,
+                "whole_run": self.rel()}
+
+
+def project_both(project, params, what: str):
+    """qrobe's ``project`` of the card's unprojected ``params`` on the card
+    and on a CPU copy: plain elementwise torch, so every leaf must agree bit
+    for bit, and ``delta`` is zero after it.  Returns the card's."""
+    card = project(params)
+    cpu = project(to_device(params, "cpu"))
+    for name, a, b in zip(leaf_names(card), leaves(card), leaves(cpu)):
+        require(torch.equal(a.cpu(), b),
+                f"{what}: project's {name} on the card differs from the "
+                f"CPU's on the same array")
+    require(not bool(card["embedding"]["delta"].any()),
+            f"{what}: delta is not zero after project")
+    return card
+
+
+def codes_differ(card, cpu) -> int:
+    """How many qrobe codes the projected params ``card`` hold otherwise
+    than ``cpu`` (the CPU step's from the same state, projected): a slot
+    whose w / scale sits at a rounding tie may round either way."""
+    return int((card["embedding"]["codes"].cpu()
+                != cpu["embedding"]["codes"]).sum())
+
+
+def quickstart_path(kind: str = "robe") -> dict:
+    """(a): examples/quickstart.py's run with the ``kind`` substrate on the
+    card from the port's own init (seed 0), each step shadowed by the CPU
+    step from the same state; for robe (400 steps) then the CPU's own run
+    from the same params, for the compressed substrates 100 steps.
 
     Every card step's loss is held to the CPU step's from the same state,
-    and so is its update of every param leaf (``UpdateErr`` over the 400
-    steps, within UPDATE_TOL): that reading sees the card's backward
-    and optimizer, which the loss of a step does not.
+    and so is its update of every param leaf (``UpdateErr``, read step by
+    step): that reading sees the card's backward and optimizer, which the
+    loss of a step does not.  For qrobe both steps are read before their
+    ``project`` (its codes, scales and ``delta`` are leaves of the reading),
+    then the card's state is projected by ``project_both``; the codes that
+    the card's step sets otherwise than the CPU's (ties, each rounding the
+    other way) are counted.
     Two free-running trajectories are not held to each other step by step:
     any change of summation order (the scatter's atomics, cuBLAS against
     the CPU's GEMMs) can flip a ReLU whose input is within rounding of 0,
@@ -810,15 +1169,19 @@ def quickstart_path() -> dict:
     runs then drift apart by 1e-3 and more.  Their held-out AUCs are held
     to each other, and the free runs' largest loss difference is reported.
     """
-    cfg = quickstart_config()
+    cfg = quickstart_config(kind)
+    n_steps = QS_STEPS if kind == "robe" else SUB_QS_STEPS
     gen = torch.Generator()
     gen.manual_seed(SEED)
     params = init_params(cfg, gen, "cpu")
     stream = quickstart_stream()
-    opt = OptimizerConfig(kind="adagrad", lr=0.08)
+    opt = OptimizerConfig(kind="adagrad", lr=SUB_QS_LR.get(kind, 0.08))
+    project = make_project_fn(cfg)
+    # both steps without the projection, which the shadow applies after
+    # reading them (build_train_step applies it last, the same)
     cpu_step = build_train_step(lambda p, b: loss_fn(p, cfg, b),
                                 make_optimizer(opt), TrainConfig())
-    step_diff, card_s = [], [0.0]
+    step_diff, card_s, off = [], [0.0], []
     upd = UpdateErr(params)
 
     def shadow(step_fn):
@@ -831,6 +1194,12 @@ def quickstart_path() -> dict:
             card_s[0] += time.perf_counter() - t0
             step_diff.append(abs(loss - float(wm["loss"])))
             upd.add(old["params"], state["params"], want["params"])
+            if project is not None:
+                state = dict(state, params=project_both(
+                    project, state["params"],
+                    f"quickstart qrobe step {len(step_diff) - 1}"))
+                off.append(codes_differ(state["params"],
+                                        project(want["params"])))
             return state, m
         return step
 
@@ -847,41 +1216,43 @@ def quickstart_path() -> dict:
 
     reset_launches()
     card = train_run(cfg, to_device(params, "cuda"), opt, stream.batch_at,
-                     QS_STEPS, shadow)
+                     n_steps, shadow)
     torch.cuda.synchronize()
     c = launch_counts()
-    t0 = time.perf_counter()
-    cpu = train_run(cfg, params, opt, stream.batch_at, QS_STEPS)
-    cpu_s = time.perf_counter() - t0
     losses = np.asarray(card.losses)
-    free = np.abs(losses - np.asarray(cpu.losses))
-    auc_card = held_out_auc(card.state["params"], "cuda")
-    auc_cpu = held_out_auc(cpu.state["params"], "cpu")
-    require(len(losses) == QS_STEPS and np.isfinite(losses).all() and
-            len(step_diff) == QS_STEPS,
-            "quickstart: non-finite or missing losses on the card")
-    require(all(n == (QS_STEPS if k in TRAIN_KERNELS else 0)
+    what = f"quickstart {kind}"
+    require(len(losses) == n_steps and np.isfinite(losses).all() and
+            len(step_diff) == n_steps,
+            f"{what}: non-finite or missing losses on the card")
+    require(all(n == (n_steps if k in TRAIN_KERNELS[kind] else 0)
                 for k, n in c.items()),
-            f"quickstart on the card launched {c}")
+            f"{what} on the card launched {c}")
     require(max(step_diff) <= QS_LOSS_TOL,
-            f"quickstart: a card step's loss differs from the CPU step's "
+            f"{what}: a card step's loss differs from the CPU step's "
             f"from the same state by {max(step_diff)} at step "
             f"{int(np.argmax(step_diff))}")
-    rel = upd.rel()
-    require(max(rel.values()) <= UPDATE_TOL,
-            f"quickstart: the card's updates differ from the CPU's from the "
-            f"same state by {rel} (relative norm per leaf)")
-    require(abs(auc_card - auc_cpu) <= QS_AUC_TOL,
-            f"quickstart: held-out AUC {auc_card} on the card, {auc_cpu} "
-            f"on the CPU")
-    res = {"loss_first": float(losses[0]), "loss_last": float(losses[-1]),
-           "loss_last_cpu": float(cpu.losses[-1]),
-           "max_step_loss_diff": max(step_diff), "update_rel_err": rel,
-           "max_free_loss_diff": float(free.max()),
-           "free_diff_step": int(free.argmax()),
-           "auc": auc_card, "auc_cpu": auc_cpu,
-           "card_steps_s": card_s[0], "cpu_run_s": cpu_s, "launches": c}
-    print(json.dumps({"train_quickstart": res}))
+    reading = upd.check(what)
+    res = {"steps": n_steps, "lr": opt.lr, "loss_first": float(losses[0]),
+           "loss_last": float(losses[-1]),
+           "max_step_loss_diff": max(step_diff), "update": reading,
+           "card_steps_s": card_s[0], "launches": c}
+    if off:
+        res["codes_differing_from_cpu_steps"] = sum(off)
+    if kind == "robe":
+        t0 = time.perf_counter()
+        cpu = train_run(cfg, params, opt, stream.batch_at, n_steps)
+        res["cpu_run_s"] = time.perf_counter() - t0
+        free = np.abs(losses - np.asarray(cpu.losses))
+        auc_card = held_out_auc(card.state["params"], "cuda")
+        auc_cpu = held_out_auc(cpu.state["params"], "cpu")
+        require(abs(auc_card - auc_cpu) <= QS_AUC_TOL,
+                f"{what}: held-out AUC {auc_card} on the card, {auc_cpu} "
+                f"on the CPU")
+        res.update(loss_last_cpu=float(cpu.losses[-1]),
+                   max_free_loss_diff=float(free.max()),
+                   free_diff_step=int(free.argmax()), auc=auc_card,
+                   auc_cpu=auc_cpu)
+    print(json.dumps({f"train_quickstart_{kind}": res}))
     return res
 
 
@@ -892,48 +1263,100 @@ def train_batches(b: int, n: int, dev) -> list:
              for k, v in stream.batch_at(k).items()} for k in range(n)]
 
 
-def full_width_path(cfg: RecsysConfig, params) -> dict:
+def full_width_path(cfg: RecsysConfig, params, kind: str = "robe") -> dict:
     """(b): three SGD steps at B=512 on the card and on the CPU, params
     compared after each, and their change since the start by
     ``UpdateErr`` (M's change is far below the params' 1e-4 bound); then
-    five adagrad steps at B=65536 with the launch counts of every step."""
+    each card step again from the CPU run's state before it, read as the
+    quickstart's steps are; then five adagrad steps at B=65536 with the
+    launch counts of every step.
+
+    The steps from the CPU's state: every leaf within UPDATE_TOL of its
+    update's norm but in at most UPDATE_FLAG_SHARE of the steps, rounded up
+    (one of three): a sample whose ReLU input sits within rounding of 0
+    moves its whole backward (qrobe's bot/0/w read 1.1e-3 at step 0 on an
+    NVIDIA H100 80GB HBM3 at 700 W, every element within 1e-3 of the
+    update's norm).  qrobe's steps are read before their ``project``, which
+    ``project_both`` then holds, as the quickstart's.  The free runs of
+    qrobe are held by their losses and their params but the scales and
+    codes: plain SGD moves its scales by about two orders more than its
+    weights (their gradient sums g · code over a group), and once a code
+    rounds the other way at a tie the two runs part (by 2e-2 of the
+    changes since the start in two steps on that card); their change since
+    the start is not read (the step-0 flip above read 1.1e-3 there)."""
     small = train_batches(B_P99, 3, "cpu")
     opt = OptimizerConfig(kind="sgd", lr=0.01)
+    project = make_project_fn(cfg)
     start = to_device(params, "cpu")
-    states = {}
-    for where in ("cuda", "cpu"):
-        p = to_device(params, where)
+    names = leaf_names(start)
+    free = {"embedding/codes", "embedding/scale"} if project else set()
+    runs = {}
+    for on_card in (True, False):
         snaps = []
 
-        def hook(step_fn, snaps=snaps):
+        def hook(step_fn, snaps=snaps, cpu=not on_card):
             def step(state, batch):
+                before = state
                 state, m = step_fn(state, batch)
-                snaps.append((float(m["loss"]),
-                               [x.cpu() for x in leaves(state["params"])]))
+                raw = state
+                if cpu and project is not None:
+                    # the projection the card's step runs inside, here
+                    # after the state before it is kept
+                    state = dict(state, params=project(state["params"]))
+                snaps.append({"loss": float(m["loss"]),
+                              "before": before if cpu else None,
+                              "raw": raw if cpu else None,
+                              "after": state if cpu else None,
+                              "params": [x.cpu()
+                                         for x in leaves(state["params"])]})
                 return state, m
             return step
-        train_run(cfg, p, opt, lambda k: small[k], 3, hook)
-        states[where] = snaps
-    sgd_diff, sgd_rel = 0.0, {}
-    for k, ((lc, pc), (lh, ph)) in enumerate(zip(states["cuda"],
-                                                 states["cpu"])):
-        require(np.isfinite(lc) and abs(lc - lh) <= TRAIN_TOL,
-                f"full width SGD step {k}: loss {lc} on the card, {lh} on "
-                f"the CPU")
-        for a, b in zip(pc, ph):
+        train_run(cfg, to_device(params, "cuda" if on_card else "cpu"), opt,
+                  lambda k: small[k], 3, hook, project if on_card else None)
+        runs[on_card] = snaps
+    sgd_diff, since = 0.0, {}
+    for k, (c, h) in enumerate(zip(runs[True], runs[False])):
+        require(np.isfinite(c["loss"]) and
+                abs(c["loss"] - h["loss"]) <= TRAIN_TOL,
+                f"{kind} full width SGD step {k}: loss {c['loss']} on the "
+                f"card, {h['loss']} on the CPU")
+        for name, a, b in zip(names, c["params"], h["params"]):
+            if name in free:
+                continue
             require(torch.allclose(a, b, rtol=TRAIN_TOL, atol=TRAIN_TOL),
-                    f"full width SGD step {k}: params differ by "
+                    f"{kind} full width SGD step {k}: {name} differs by "
                     f"{float((a - b).abs().max())}")
             sgd_diff = max(sgd_diff, float((a - b).abs().max()))
-        upd = UpdateErr(start)
-        upd.add(start, unflatten(start, pc), unflatten(start, ph))
-        for name, r in upd.rel().items():
-            require(r <= UPDATE_TOL,
-                    f"full width SGD step {k}: {name}'s change since the "
-                    f"start differs from the CPU's by {r} of its norm")
-            sgd_rel[name] = max(sgd_rel.get(name, 0.0), r)
-    sgd_losses = [lc for lc, _ in states["cuda"]]
-    del states
+        if project is None:
+            upd = UpdateErr(start)
+            upd.add(start, unflatten(start, c["params"]),
+                    unflatten(start, h["params"]))
+            for name, r in upd.rel().items():
+                require(r <= UPDATE_TOL,
+                        f"{kind} full width SGD step {k}: {name}'s change "
+                        f"since the start differs from the CPU's by {r} of "
+                        f"its norm")
+                since[name] = max(since.get(name, 0.0), r)
+    # each card step from the CPU run's state before it, read before its
+    # projection
+    card_step = build_train_step(lambda p, b: loss_fn(p, cfg, b),
+                                 make_optimizer(opt), TrainConfig())
+    upd = UpdateErr(start)
+    off = 0
+    for k, h in enumerate(runs[False]):
+        new, _ = card_step(to_device(h["before"], "cuda"),
+                           to_device(small[k], "cuda"))
+        upd.add(h["before"]["params"], new["params"], h["raw"]["params"])
+        if project is not None:
+            off += codes_differ(
+                project_both(project, new["params"],
+                             f"{kind} full width SGD step {k}"),
+                h["after"]["params"])
+    # three steps: their medians would be one step's reading
+    reading = upd.check(f"{kind} full width SGD", median=False)
+    reading["change_since_start"] = since
+    sgd_losses = [c["loss"] for c in runs[True]]
+    del runs
 
     big = train_batches(B_TRAIN, 5, "cpu")
     per_step = []
@@ -947,20 +1370,21 @@ def full_width_path(cfg: RecsysConfig, params) -> dict:
             return out
         return step
     rep = train_run(cfg, params, OptimizerConfig(kind="adagrad", lr=1e-3),
-                    lambda k: big[k], 5, count)
+                    lambda k: big[k], 5, count, project)
     require(len(rep.losses) == 5 and np.isfinite(rep.losses).all(),
-            f"full width adagrad: losses {rep.losses}")
+            f"{kind} full width adagrad: losses {rep.losses}")
     for k, c in enumerate(per_step):
-        require(all(n == (1 if name in TRAIN_KERNELS else 0)
+        require(all(n == (1 if name in TRAIN_KERNELS[kind] else 0)
                     for name, n in c.items()),
-                f"full width adagrad step {k} launched {c}; expected one "
-                f"each of {TRAIN_KERNELS} and no other kernel")
+                f"{kind} full width adagrad step {k} launched {c}; expected "
+                f"one each of {TRAIN_KERNELS[kind]} and no other kernel")
     res = {"sgd_b512_max_param_diff": sgd_diff,
-           "sgd_b512_update_rel_err": sgd_rel, "sgd_b512_losses": sgd_losses,
+           "sgd_b512_update": reading, "sgd_b512_losses": sgd_losses,
+           "sgd_b512_codes_differing_from_cpu_steps": off,
            "adagrad_b65536_losses": rep.losses,
            "launches_per_step": per_step[0],
            "launches": {k: sum(c[k] for c in per_step) for k in per_step[0]}}
-    print(json.dumps({"train_full_width": res}))
+    print(json.dumps({f"train_full_width_{kind}": res}))
     return res
 
 
@@ -1192,6 +1616,116 @@ def time_backwards(gen, spec, rates, dev) -> dict:
     return out
 
 
+def time_substrate_backwards(gen, spec, subs, rates, dev) -> dict:
+    """The three new backward kernels at B=512 and at the training batch
+    (B=65536, tag "_train"), each beside its bound (and its passes at the
+    training batch); the plain versions at B=512; and
+    serve_fused's composed backward at B=512 beside its plain version.
+    Each time is of the wrapper call, the zeroing of its f32 workspaces
+    included."""
+    tids = tuple(range(F))
+    qp = subs.params("qrobe")["embedding"]
+    qspec = subs.recsys_config("qrobe").embedding_spec().robe
+    hp = subs.params("hashed")["embedding"]
+    q_off, r_off, m = qr_args(subs)
+    tp = subs.params("tt")["embedding"]
+    cores = (tp["core0"], tp["core1"], tp["core2"])
+    offsets, factors = tt_args(subs)
+    (d1, d2, d3), rank = factor_dim(D), cores[0].shape[2]
+    n_q, n_r = hp["q_table"].shape[0], hp["r_table"].shape[0]
+    calls = {   # kernel -> (CUDA call, plain call) on ([B, F] ids, g)
+        "qrobe_lookup_bwd": (
+            lambda r, g: qrobe_lookup_bwd_cuda(g, qp["codes"], r, tids, D,
+                                               qspec, GROUP_LOG2),
+            lambda r, g: qrobe_lookup_bwd_ref(g, qp["codes"], r, tids, D,
+                                              qspec, GROUP_LOG2)),
+        "qr_lookup_bwd": (
+            lambda r, g: qr_lookup_bwd_cuda(g, hp["q_table"], hp["r_table"],
+                                            r, q_off, r_off, m),
+            lambda r, g: qr_lookup_bwd_ref(g, hp["q_table"], hp["r_table"],
+                                           r, q_off, r_off, m)),
+        "tt_lookup_bwd": (
+            lambda r, g: tt_lookup_bwd_cuda(g, *cores, r, offsets, factors),
+            lambda r, g: tt_lookup_bwd_ref(g, *cores, r, offsets, factors)),
+    }
+    # multiply-adds an item: t, dc3, dt, dc1, dc2
+    tt_macs = 3 * d1 * d2 * rank * rank + 2 * d1 * d2 * d3 * rank
+    out = {k: {} for k in (*calls, "serve_fused_bwd")}
+    for b, n_in in ((B_P99, 8), (B_TRAIN, 2)):
+        tag = "" if b == B_P99 else "_train"
+        rows = bulk_inputs(gen, dev, b, n_in)
+        gs = [torch.randn((b, F, D), generator=gen, device=dev)
+              for _ in range(n_in)]
+        g_bytes = b * F * D * 4 + b * F * 4     # g and the ids, read once
+        uniq = int(touched_slots(qspec, rows[0]).sum())
+        qi, ri = qr_indices(rows[0], q_off, r_off, m)
+        i1, i2, i3 = tt_indices(rows[0], offsets, factors)
+        touched = {   # kernel -> (bytes, FLOP) this run's data needs
+            # the touched codes read; delta's gradient (|M| f32) and the
+            # scales' written
+            "qrobe_lookup_bwd": (g_bytes + uniq + qspec.size * 4
+                                 + qp["scale"].numel() * 4, 2 * b * F * D),
+            # the touched rows of Q and R read, both gradients written
+            "qr_lookup_bwd": (g_bytes + (n_unique(qi) + n_unique(ri)) * D * 4
+                              + (n_q + n_r) * D * 4, 4 * b * F * D),
+            # the touched core rows read, the three gradients written
+            "tt_lookup_bwd": (g_bytes + 4 * (n_unique(i1) * d1 * rank
+                                             + n_unique(i2) * rank * d2 * rank
+                                             + n_unique(i3) * rank * d3)
+                              + 4 * sum(c.numel() for c in cores),
+                              2 * tt_macs * b * F),
+        }
+        for k, (nbytes, flops) in touched.items():
+            out[k]["bound_ms" + tag], out[k]["bound_by" + tag] = bound(
+                nbytes, flops, rates)
+            out[k]["library_ms" + tag] = None
+            out[k]["ms" + tag] = device_ms(calls[k][0], list(zip(rows, gs)))
+            if b == B_P99:
+                out[k]["plain_ms"] = device_ms(calls[k][1],
+                                               list(zip(rows, gs)))
+        if b == B_P99:
+            serve_bwd_times(out["serve_fused_bwd"], gen, spec, subs, rows,
+                            uniq, rates, dev)
+        else:
+            out["tt_lookup_bwd"]["passes_ms_train"] = device_breakdown(
+                lambda: calls["tt_lookup_bwd"][0](rows[0], gs[0]))["top_ms"]
+            out["qr_lookup_bwd"]["passes_ms_train"] = device_breakdown(
+                lambda: calls["qr_lookup_bwd"][0](rows[0], gs[0]))["top_ms"]
+            out["qrobe_lookup_bwd"]["passes_ms_train"] = device_breakdown(
+                lambda: calls["qrobe_lookup_bwd"][0](rows[0], gs[0]))[
+                    "top_ms"]
+        del rows, gs, qi, ri, i1, i2, i3
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_bwd_times(sf: dict, gen, spec, subs, rows, uniq: int, rates,
+                    dev) -> None:
+    """serve_fused's composed backward (robe_lookup, dot_interaction_bwd
+    and robe_lookup_bwd) on ``rows`` beside its plain version, into ``sf``.
+    Bytes: g, the ids and bot read, the ``uniq`` touched slots of M read,
+    gM (|M| f32) and gbot written; FLOP: the gram transpose's
+    2·B·(F+1)²·D."""
+    tids = tuple(range(F))
+    b = rows[0].shape[0]
+    memory = subs_memory(subs)
+    p = (F + 1) * F // 2
+    cts = [torch.randn((b, p), generator=gen, device=dev) for _ in rows]
+    bots = [torch.randn((b, D), generator=gen, device=dev) for _ in rows]
+    sf["bound_ms"], sf["bound_by"] = bound(
+        b * p * 4 + b * F * 4 + 2 * b * D * 4 + uniq * 4 + spec.size * 4,
+        2 * b * (F + 1) ** 2 * D, rates)
+    sf["library_ms"] = None
+    sf["ms"] = device_ms(
+        lambda r, g, bt: serve_fused_bwd_cuda(g, memory, r, bt, tids, D,
+                                              spec),
+        list(zip(rows, cts, bots)))
+    sf["plain_ms"] = device_ms(
+        lambda r, g, bt: serve_fused_bwd_ref(g, memory, r, bt, tids, D,
+                                             spec),
+        list(zip(rows, cts, bots)))
+
+
 def device_breakdown(fn, calls: int = 3) -> dict:
     """Device time per call of ``fn`` by kernel name (``torch.profiler``)
     and the card's busy share of the host-clock window."""
@@ -1220,13 +1754,13 @@ def device_breakdown(fn, calls: int = 3) -> dict:
 
 
 def time_train_step(cfg: RecsysConfig, params) -> dict:
-    """One full-width adagrad ``step_fn`` at B=65536: host-clock median
-    (batch on the card, the loss read back as ``run`` reads it), and its
-    device breakdown."""
+    """One full-width adagrad ``step_fn`` at B=65536 (with qrobe's
+    ``project``): host-clock median (batch on the card, the loss read back
+    as ``run`` reads it), and its device breakdown."""
     optimizer = make_optimizer(OptimizerConfig(kind="adagrad", lr=1e-3))
     tc = TrainConfig()
     step_fn = build_train_step(lambda p, b: loss_fn(p, cfg, b), optimizer,
-                               tc)
+                               tc, project=make_project_fn(cfg))
     batch = train_batches(B_TRAIN, 1, "cuda")[0]
     box = {"state": init_state(params, optimizer, tc)}
 
@@ -1255,6 +1789,22 @@ def profile_scores(paths: dict, batch, n: int) -> dict:
             for label, (server, backend) in paths.items()}
 
 
+def server_config() -> ServerConfig:
+    """The full-width ``dlrm-criteo-tb`` server of robe (fused)."""
+    return ServerConfig(vocab_sizes=CRITEO_TB_VOCABS, embed_dim=D,
+                        n_dense=13, bot_mlp=(512, 256, 128),
+                        top_mlp=(1024, 1024, 512, 256, 1), backends=("robe",),
+                        robe_compression=1000, robe_block=32,
+                        cache_capacity=0, use_kernel=True, seed=SEED)
+
+
+def substrate_server(cfg: ServerConfig) -> EmbeddingServer:
+    """The compressed substrates' server on the card: each backend's own
+    full-width init (qrobe quantizes a full |M|-slot array)."""
+    return EmbeddingServer(dataclasses.replace(
+        cfg, backends=tuple(SUBSTRATES)), device="cuda")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1278,20 +1828,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip())
 
-    cfg = ServerConfig(vocab_sizes=CRITEO_TB_VOCABS, embed_dim=D, n_dense=13,
-                       bot_mlp=(512, 256, 128),
-                       top_mlp=(1024, 1024, 512, 256, 1), backends=("robe",),
-                       robe_compression=1000, robe_block=32,
-                       cache_capacity=0, use_kernel=True, seed=SEED)
+    cfg = server_config()
     spec = cfg.recsys_cfg("robe").embedding_spec().robe
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     memory = init_memory(gen, spec, dev)
 
-    # the compressed substrates' server: each backend's own full-width init
-    # (qrobe quantizes a full |M|-slot array), read by phases 2 to 4
-    subs = EmbeddingServer(dataclasses.replace(
-        cfg, backends=tuple(SUBSTRATES)), device="cuda")
+    subs = substrate_server(cfg)
 
     t0 = time.perf_counter()
     err = check_kernels(gen, memory, spec, subs, dev)
@@ -1305,11 +1848,17 @@ def main() -> int:
     print(f"main paths ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    rcfg = cfg.recsys_cfg("robe")
     # the served weights, copied out of inference mode for training
-    robe_params = tree_map(torch.clone, fused.params("robe"))
-    quickstart_path()
-    full = full_width_path(rcfg, robe_params)
+    train_cfgs = {"robe": cfg.recsys_cfg("robe"),
+                  **{k: subs.recsys_config(k) for k in SUBSTRATES}}
+    train_params = {"robe": tree_map(torch.clone, fused.params("robe")),
+                    **{k: tree_map(torch.clone, subs.params(k))
+                       for k in SUBSTRATES}}
+    full = {}
+    for kind in train_cfgs:
+        quickstart_path(kind)
+        full[kind] = full_width_path(train_cfgs[kind], train_params[kind],
+                                     kind)
     print(f"training paths ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -1320,9 +1869,11 @@ def main() -> int:
     with torch.inference_mode():
         times = time_kernels(gen, memory, spec, subs, rates, dev)
         times.update(time_backwards(gen, spec, rates, dev))
+        times.update(time_substrate_backwards(gen, spec, subs, rates, dev))
         scores = time_scores(paths, batches)
         prof = profile_scores(paths, *batches[B_BULK])
-    train_step = time_train_step(rcfg, robe_params)
+    train_step = {k: time_train_step(train_cfgs[k], train_params[k])
+                  for k in train_cfgs}
     print(f"timing done ({time.perf_counter() - t0:.1f} s)")
     print(json.dumps({"profile_score_262144": prof}))
     print(json.dumps({"train_step_65536": train_step}))
@@ -1333,8 +1884,10 @@ def main() -> int:
                 "dot_interaction": c_unfused["dot_interaction"],
                 "serve_fused": c_fused["serve_fused"],
                 **{k: c_subs[kind][k] for kind, k in SUBSTRATES.items()},
-                **{k: full["launches"][k] for k in ("robe_lookup_bwd",
-                                                    "dot_interaction_bwd")}}
+                **{k: full["robe"]["launches"][k]
+                   for k in ("robe_lookup_bwd", "dot_interaction_bwd")},
+                **{k + "_bwd": full[kind]["launches"][k + "_bwd"]
+                   for kind, k in SUBSTRATES.items()}}
     kernels = []
     for k, meta in KERNELS.items():
         row = {"name": k, "route": "cuda", **meta, "launches": launches[k],
@@ -1345,6 +1898,13 @@ def main() -> int:
             row["max_err_over_a_bf16"] = err[k]["over_a"]["bfloat16"]
         row.update(times[k])
         kernels.append(row)
+    sf_bwd = {"max_abs_err": err["serve_fused_bwd"]["float32"],
+              "max_abs_err_bf16": err["serve_fused_bwd"]["bfloat16"],
+              "max_err_over_a": err["serve_fused_bwd"]["over_a"]["float32"],
+              "max_err_over_a_bf16":
+                  err["serve_fused_bwd"]["over_a"]["bfloat16"],
+              **times["serve_fused_bwd"]}
+    print(json.dumps({"serve_fused_bwd": sf_bwd}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

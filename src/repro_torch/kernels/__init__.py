@@ -7,23 +7,27 @@ from repro_torch.kernels.dot_interaction import (dot_interaction_bwd_cuda,
 from repro_torch.kernels.ops import (dot_interaction, qr_lookup,
                                      qrobe_lookup, robe_lookup, serve_fused,
                                      tt_lookup)
-from repro_torch.kernels.qr_lookup import qr_lookup_cuda
-from repro_torch.kernels.qrobe_lookup import qrobe_lookup_cuda
+from repro_torch.kernels.qr_lookup import qr_lookup_bwd_cuda, qr_lookup_cuda
+from repro_torch.kernels.qrobe_lookup import (qrobe_lookup_bwd_cuda,
+                                              qrobe_lookup_cuda)
 from repro_torch.kernels.robe_lookup import (robe_lookup_bwd_cuda,
                                              robe_lookup_cuda)
 from repro_torch.kernels.serve_fused import serve_fused_cuda
-from repro_torch.kernels.tt_lookup import tt_lookup_cuda
+from repro_torch.kernels.tt_lookup import tt_lookup_bwd_cuda, tt_lookup_cuda
 
 #: every kernel wrapper of the package; each carries a ``launches`` count
 CUDA_KERNELS = (robe_lookup_cuda, dot_interaction_cuda, serve_fused_cuda,
                 qrobe_lookup_cuda, qr_lookup_cuda, tt_lookup_cuda,
-                robe_lookup_bwd_cuda, dot_interaction_bwd_cuda)
+                robe_lookup_bwd_cuda, dot_interaction_bwd_cuda,
+                qrobe_lookup_bwd_cuda, qr_lookup_bwd_cuda, tt_lookup_bwd_cuda)
 
 __all__ = ["robe_lookup", "dot_interaction", "serve_fused", "qrobe_lookup",
            "qr_lookup", "tt_lookup", "robe_lookup_cuda",
            "dot_interaction_cuda", "serve_fused_cuda", "qrobe_lookup_cuda",
            "qr_lookup_cuda", "tt_lookup_cuda", "robe_lookup_bwd_cuda",
-           "dot_interaction_bwd_cuda", "CUDA_KERNELS", "reset_launches",
+           "dot_interaction_bwd_cuda", "qrobe_lookup_bwd_cuda",
+           "qr_lookup_bwd_cuda", "tt_lookup_bwd_cuda", "CUDA_KERNELS",
+           "reset_launches",
            "launch_counts"]
 
 

@@ -57,7 +57,29 @@ SIGNATURES = {
     "robe_lookup_bwd_launch": (_p, _p, _p, _p, _p, _ll, _i, _i, _ll, _ll,
                                _u64p, _u32p, _i, _i, _i, _i, _p),
     "dot_interaction_bwd_launch": (_p, _ll, _p, _p, _i, _i, _i, _i, _i, _p),
+    "qrobe_lookup_bwd_launch": (_p, _p, _p, _p, _p, _p, _ll, _i, _i, _ll,
+                                _ll, _u64p, _u32p, _i, _i, _i, _i, _i, _p),
+    "qr_lookup_bwd_launch": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i,
+                             _ll, _ll, _i32p, _i32p, _i, _i, _i, _ll, _ll,
+                             _p),
+    "tt_lookup_bwd_launch": (_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+                             _ll, _i, _i, _ll, _ll, _i32p, _i, _i, _i, _i,
+                             _i, _i, _i, _i, _p),
 }
+
+
+def align(n: int, a: int = 256) -> int:
+    """n rounded up to a multiple of a: the parts of the kernels' scratch
+    are 256-byte aligned."""
+    return -(-n // a) * a
+
+
+def row_sort_bytes(n_keys: int, n_items: int) -> int:
+    """Scratch bytes of one sort of ``n_items`` items by ``n_keys`` keys in
+    the backwards of the compressed substrates (``rs_scratch_bytes`` in
+    csrc/row_sort.cuh): a count a key, then an (item, key) pair an item,
+    each part 256-byte aligned."""
+    return align(4 * n_keys) + align(8 * n_items)
 
 
 def _nvcc() -> str:

@@ -6,16 +6,16 @@ package chose by ``jax.default_backend()`` and a ``use_kernel`` flag; here
 ``use_kernel`` only chooses the fused serve path or the unfused one, in
 ``models/recsys.py``.)
 
-Each op is a ``torch.autograd.Function``.  ``robe_lookup`` and
-``dot_interaction``, the two ops of the DLRM's training step, have the
-backwards of the JAX package's custom VJPs, dispatched by device like
-their forwards: on the card the Hopper kernels ``robe_lookup_bwd`` (the
-sign-corrected scatter-add into M) and ``dot_interaction_bwd``.
-``serve_fused``, ``qrobe_lookup``, ``qr_lookup`` and ``tt_lookup`` are
-forward only: their backwards raise ``NotImplementedError`` and come with
-the next slice of the port, which trains the compressed substrates.  The
-serve path runs under ``torch.inference_mode()``; an op saves its
-backward's inputs only when its first input needs a gradient.
+Each op is a ``torch.autograd.Function`` with the backward of the JAX
+package's custom VJP, dispatched by device like its forward.  On the card
+the backwards are Hopper kernels: ``robe_lookup_bwd`` (the sign-corrected
+scatter-add into M), ``dot_interaction_bwd``, ``qrobe_lookup_bwd`` (the
+scales' and the ``delta`` carrier's gradients; the int8 codes take none),
+``qr_lookup_bwd`` and ``tt_lookup_bwd``; ``serve_fused``'s backward is
+composed of ``robe_lookup``, ``dot_interaction_bwd`` and
+``robe_lookup_bwd``.  The serve path runs under ``torch.inference_mode()``;
+an op saves its backward's inputs only when an input needs a gradient, and
+returns ``None`` for the integer inputs and the static arguments.
 """
 
 from __future__ import annotations
@@ -27,14 +27,22 @@ from repro_torch.kernels.dot_interaction import (dot_interaction_bwd_cuda,
                                                  dot_interaction_bwd_ref,
                                                  dot_interaction_cuda,
                                                  dot_interaction_ref)
-from repro_torch.kernels.qr_lookup import qr_lookup_cuda, qr_lookup_ref
-from repro_torch.kernels.qrobe_lookup import (qrobe_lookup_cuda,
+from repro_torch.kernels.qr_lookup import (qr_lookup_bwd_cuda,
+                                           qr_lookup_bwd_ref, qr_lookup_cuda,
+                                           qr_lookup_ref)
+from repro_torch.kernels.qrobe_lookup import (qrobe_lookup_bwd_cuda,
+                                              qrobe_lookup_bwd_ref,
+                                              qrobe_lookup_cuda,
                                               qrobe_lookup_ref)
 from repro_torch.kernels.robe_lookup import (robe_lookup_bwd_cuda,
                                              robe_lookup_bwd_ref,
                                              robe_lookup_cuda, robe_lookup_ref)
-from repro_torch.kernels.serve_fused import serve_fused_cuda, serve_fused_ref
-from repro_torch.kernels.tt_lookup import tt_lookup_cuda, tt_lookup_ref
+from repro_torch.kernels.serve_fused import (serve_fused_bwd_cuda,
+                                             serve_fused_bwd_ref,
+                                             serve_fused_cuda, serve_fused_ref)
+from repro_torch.kernels.tt_lookup import (tt_lookup_bwd_cuda,
+                                           tt_lookup_bwd_ref, tt_lookup_cuda,
+                                           tt_lookup_ref)
 
 __all__ = ["robe_lookup", "dot_interaction", "serve_fused", "qrobe_lookup",
            "qr_lookup", "tt_lookup"]
@@ -48,25 +56,10 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for device {t.device}")
 
 
-#: the slice of the port that brings each missing backward
-LATER = {
-    "qrobe_lookup": "the next slice, which trains the compressed substrates",
-    "qr_lookup": "the next slice, which trains the compressed substrates",
-    "tt_lookup": "the next slice, which trains the compressed substrates",
-    "serve_fused": "the slice after the compressed substrates' training "
-                   "(the JAX package's _serve_bwd)",
-}
-
-
-class _ForwardOnly(torch.autograd.Function):
-    """An op whose backward the port does not have yet; its forward sets
-    ``ctx.op_name``."""
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            f"the backward of {ctx.op_name} is not yet ported: it comes with "
-            f"{LATER[ctx.op_name]} (ROADMAP module item 1)")
+def _grad_in(g: torch.Tensor) -> torch.Tensor:
+    """A cotangent as the backward kernels take it: elements contiguous
+    (any batch and field strides)."""
+    return g if g.stride(-1) == 1 else g.contiguous()
 
 
 class _RobeLookup(torch.autograd.Function):
@@ -83,9 +76,7 @@ class _RobeLookup(torch.autograd.Function):
         (rows,) = ctx.saved_tensors
         table_ids, dim, spec, mem_dtype = ctx.args
         if _on_cuda(g):
-            fn = robe_lookup_bwd_cuda
-            if g.stride(-1) != 1:
-                g = g.contiguous()
+            fn, g = robe_lookup_bwd_cuda, _grad_in(g)
         else:
             fn = robe_lookup_bwd_ref
         gm = fn(g.to(mem_dtype), rows, table_ids, dim, spec)
@@ -113,38 +104,92 @@ class _DotInteraction(torch.autograd.Function):
         return fn(g.to(feats.dtype), feats, ctx.self_interaction), None
 
 
-class _ServeFused(_ForwardOnly):
+class _ServeFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, memory, idx, bot, table_ids, dim, spec):
-        ctx.op_name = "serve_fused"
         fn = serve_fused_cuda if _on_cuda(memory) else serve_fused_ref
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[2]:
+            ctx.save_for_backward(memory, idx, bot)
+            ctx.args = (table_ids, dim, spec)
         return fn(memory, idx, bot, table_ids, dim, spec)
 
+    @staticmethod
+    def backward(ctx, g):
+        memory, idx, bot = ctx.saved_tensors
+        fn = serve_fused_bwd_cuda if _on_cuda(g) else serve_fused_bwd_ref
+        gm, gbot = fn(g, memory, idx, bot, *ctx.args)
+        return (gm if ctx.needs_input_grad[0] else None, None,
+                gbot if ctx.needs_input_grad[2] else None, None, None, None)
 
-class _QrobeLookup(_ForwardOnly):
+
+class _QrobeLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, codes, scale, rows, table_ids, dim, spec, group_log2,
                 delta):
-        ctx.op_name = "qrobe_lookup"
         fn = qrobe_lookup_cuda if _on_cuda(codes) else qrobe_lookup_ref
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[7]:
+            ctx.save_for_backward(codes, rows)
+            ctx.args = (table_ids, dim, spec, group_log2, scale.dtype)
         return fn(codes, scale, rows, table_ids, dim, spec, group_log2,
                   delta)
 
+    @staticmethod
+    def backward(ctx, g):
+        codes, rows = ctx.saved_tensors
+        table_ids, dim, spec, group_log2, scale_dtype = ctx.args
+        if _on_cuda(g):
+            fn, g = qrobe_lookup_bwd_cuda, _grad_in(g)
+        else:
+            fn = qrobe_lookup_bwd_ref
+        gscale, gdelta = fn(g.to(scale_dtype), codes, rows, table_ids, dim,
+                            spec, group_log2)
+        return (None, gscale if ctx.needs_input_grad[1] else None, None,
+                None, None, None, None,
+                gdelta if ctx.needs_input_grad[7] else None)
 
-class _QrLookup(_ForwardOnly):
+
+class _QrLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_table, r_table, idx, q_off, r_off, m):
-        ctx.op_name = "qr_lookup"
         fn = qr_lookup_cuda if _on_cuda(q_table) else qr_lookup_ref
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(q_table, r_table, idx)
+            ctx.args = (q_off, r_off, m)
         return fn(q_table, r_table, idx, q_off, r_off, m)
 
+    @staticmethod
+    def backward(ctx, g):
+        q_table, r_table, idx = ctx.saved_tensors
+        if _on_cuda(g):
+            fn, g = qr_lookup_bwd_cuda, _grad_in(g)
+        else:
+            fn = qr_lookup_bwd_ref
+        gq, gr = fn(g.to(q_table.dtype), q_table, r_table, idx, *ctx.args)
+        return (gq if ctx.needs_input_grad[0] else None,
+                gr if ctx.needs_input_grad[1] else None,
+                None, None, None, None)
 
-class _TtLookup(_ForwardOnly):
+
+class _TtLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, core0, core1, core2, idx, offsets, factors, dim):
-        ctx.op_name = "tt_lookup"
         fn = tt_lookup_cuda if _on_cuda(core0) else tt_lookup_ref
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(core0, core1, core2, idx)
+            ctx.args = (offsets, factors)
         return fn(core0, core1, core2, idx, offsets, factors, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        core0, core1, core2, idx = ctx.saved_tensors
+        if _on_cuda(g):
+            fn, g = tt_lookup_bwd_cuda, _grad_in(g)
+        else:
+            fn = tt_lookup_bwd_ref
+        grads = fn(g.to(core0.dtype), core0, core1, core2, idx, *ctx.args)
+        return tuple(gc if need else None for gc, need in
+                     zip(grads, ctx.needs_input_grad[:3])) + \
+            (None, None, None, None)
 
 
 def robe_lookup(memory: torch.Tensor, rows: torch.Tensor, table_ids,

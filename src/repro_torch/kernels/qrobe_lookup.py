@@ -8,6 +8,14 @@ same launch adds the qrobe backend's straight-through term
 ``delta[slot] · sign``.  ``qrobe_lookup_ref`` (plus, with ``delta``,
 ``robe_lookup_ref`` of ``delta`` and the add) is the plain PyTorch version
 it is held against.
+
+``qrobe_lookup_bwd_cuda`` launches ``csrc/qrobe_lookup_bwd.cu`` (the port
+of the JAX package's ``_qrobe_bwd`` and of the gradient its autodiff gives
+the backend's ``delta`` term): the cotangent [B, F, dim] -> (the scales'
+gradient, ``delta``'s gradient), the second by ``robe_lookup_bwd``'s
+bucketed scatter of ``g · sign`` into an f32 workspace, the first summed
+from it (``code · gdelta`` over each group) in one more pass.
+``qrobe_lookup_bwd_ref`` is its plain version.
 """
 
 from __future__ import annotations
@@ -16,9 +24,11 @@ import torch
 
 from repro_torch.core.robe import RobeSpec
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import qrobe_lookup_ref
+from repro_torch.kernels.ref import qrobe_lookup_bwd_ref, qrobe_lookup_ref
+from repro_torch.kernels.robe_lookup import STAGE_PAIRS, bwd_plan
 
-__all__ = ["qrobe_lookup_cuda", "qrobe_lookup_ref"]
+__all__ = ["qrobe_lookup_cuda", "qrobe_lookup_ref", "qrobe_lookup_bwd_cuda",
+           "qrobe_lookup_bwd_ref"]
 
 
 def qrobe_lookup_cuda(codes: torch.Tensor, scale: torch.Tensor,
@@ -79,3 +89,61 @@ def qrobe_lookup_cuda(codes: torch.Tensor, scale: torch.Tensor,
 
 
 qrobe_lookup_cuda.launches = 0
+
+
+def qrobe_lookup_bwd_cuda(g: torch.Tensor, codes: torch.Tensor,
+                          rows: torch.Tensor, table_ids, dim: int,
+                          spec: RobeSpec, group_log2: int) -> tuple:
+    """The lookup's cotangent g [B, F, dim] in the scale's dtype (any batch
+    and field strides, elements contiguous), codes [|M|] int8 and the
+    [B, F] int32 rows, on one CUDA device -> (gscale [ceil(|M| /
+    2^group_log2)] in g's dtype, gdelta [|M|] f32), each summed in f32 in
+    no fixed order."""
+    if not (g.is_cuda and rows.device == g.device
+            and codes.device == g.device):
+        raise ValueError("qrobe_lookup_bwd_cuda needs g, codes and rows on "
+                         "one CUDA device")
+    if codes.dtype != torch.int8 or codes.shape != (spec.size,) or \
+            not codes.is_contiguous():
+        raise ValueError(f"codes must be contiguous [{spec.size}] int8, got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+    if rows.dtype != torch.int32 or rows.dim() != 2 or \
+            not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous [B, F] int32, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    b, f = rows.shape
+    if g.shape != (b, f, dim) or g.stride(2) != 1:
+        raise ValueError(f"g must be [{b}, {f}, {dim}] with contiguous "
+                         f"elements, got {tuple(g.shape)} strides "
+                         f"{g.stride()}")
+    if not 0 <= group_log2 <= 30:
+        raise ValueError(f"group_log2 must be in [0, 30], got {group_log2}")
+    tids = tuple(int(t) for t in table_ids)
+    if len(tids) != f:
+        raise ValueError(f"{len(tids)} table ids for {f} fields")
+    if dim < 1 or b * f >= 2 ** 31:
+        raise ValueError(f"unsupported shape: B*F = {b * f}, dim = {dim}")
+    plan = bwd_plan(spec, f, b * f, dim)
+    if b * f * plan.n_seg >= 2 ** 31 or plan.n_seg > STAGE_PAIRS:
+        raise ValueError(f"too many (item, segment) pairs for one launch: "
+                         f"{b * f} items of {plan.n_seg}")
+    code = _build.dtype_code(g)
+    gdelta = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
+    gscale = torch.zeros(-(-spec.size // (1 << group_log2)), dtype=g.dtype,
+                         device=g.device)
+    if b == 0:
+        return gscale, gdelta
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                          device=g.device)
+    coeffs, tid_arr = _build.hash_args(spec, tids)
+    err = _build.library().qrobe_lookup_bwd_launch(
+        g.data_ptr(), rows.data_ptr(), codes.data_ptr(), gdelta.data_ptr(),
+        gscale.data_ptr(), scratch.data_ptr(), plan.scratch_bytes, b * f,
+        code, g.stride(0), g.stride(1), coeffs, tid_arr, f, dim, spec.log2_z,
+        int(spec.use_sign), group_log2, _build.stream_ptr(g))
+    _build.check("qrobe_lookup_bwd", err)
+    qrobe_lookup_bwd_cuda.launches += 1
+    return gscale, gdelta
+
+
+qrobe_lookup_bwd_cuda.launches = 0

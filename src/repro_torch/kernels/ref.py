@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the six forward kernels
-and the backwards of ``robe_lookup`` and ``dot_interaction``.
+and the backwards of every op (``robe_lookup``, ``dot_interaction``,
+``qrobe_lookup``, ``qr_lookup``, ``tt_lookup`` and ``serve_fused``).
 
 Each function is the semantics its Hopper kernel is held against: the CPU
 path of ``repro_torch.kernels.ops`` runs them, the tests hold them against
@@ -71,6 +72,31 @@ def qrobe_lookup_ref(codes: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def qrobe_lookup_bwd_ref(g: torch.Tensor, codes: torch.Tensor,
+                         rows: torch.Tensor, table_ids, dim: int,
+                         spec: RobeSpec, group_log2: int) -> tuple:
+    """The int8 lookup's cotangent g [B, F, dim] (in the scale's dtype) ->
+    (gscale [ceil(|M| / 2^group_log2)] in g's dtype, gdelta [|M|] f32).
+
+    ``gscale[k]`` sums ``g · sign · code`` over the elements whose slot lies
+    in group k (the JAX package's ``_qrobe_bwd``); ``gdelta`` is the
+    scatter-add of ``g · sign`` into the slots (what autodiff gives the
+    backend's ``delta`` term).  Both accumulate in f32."""
+    tids = torch.as_tensor(table_ids, dtype=torch.int64,
+                           device=rows.device)[None, :]
+    slots = robe_slots(spec, tids, rows, dim).reshape(-1)
+    g32 = g.to(torch.float32)
+    if spec.use_sign:
+        g32 = g32 * robe_signs(spec, tids, rows, dim)
+    g32 = g32.reshape(-1)
+    n_groups = -(-spec.size // (1 << group_log2))
+    gscale = torch.zeros(n_groups, dtype=torch.float32, device=g.device)
+    gscale.index_add_(0, slots >> group_log2,
+                      g32 * codes[slots].to(torch.float32))
+    gdelta = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
+    return gscale.to(g.dtype), gdelta.index_add_(0, slots, g32)
+
+
 def dot_interaction_ref(feats: torch.Tensor, self_interaction: bool = False
                         ) -> torch.Tensor:
     """DLRM pairwise-dot feature interaction.
@@ -119,6 +145,15 @@ def serve_fused_ref(memory: torch.Tensor, idx: torch.Tensor,
     bot: [B, dim] -> [B, (F+1)·F/2] in ``bot``'s dtype.  Bags are summed in
     f32 and rounded ONCE to ``bot``'s dtype before the f32 gram.
     """
+    _, _, _, pooled = _bags(memory, idx, table_ids, dim, spec)
+    feats = torch.cat([bot[:, None, :], pooled.to(bot.dtype)], dim=1)
+    return dot_interaction_ref(feats, False)
+
+
+def _bags(memory, idx, table_ids, dim, spec) -> tuple:
+    """idx [B, F] or [B, F, bag] (-1 = pad) -> (its pad mask, the rows with
+    pads read as row 0, the table ids [1, F, 1], the f32 bag sums
+    [B, F, dim] of the lookups)."""
     if idx.dim() == 2:
         idx = idx[..., None]
     mask = idx >= 0
@@ -126,9 +161,29 @@ def serve_fused_ref(memory: torch.Tensor, idx: torch.Tensor,
     tids = torch.as_tensor(table_ids, dtype=torch.int64,
                            device=idx.device)[None, :, None]
     emb = _core_lookup(memory, spec, tids, safe, dim)     # [B, F, bag, dim]
-    pooled = (emb.to(torch.float32) * mask[..., None]).sum(dim=2)
-    feats = torch.cat([bot[:, None, :], pooled.to(bot.dtype)], dim=1)
-    return dot_interaction_ref(feats, False)
+    return mask, safe, tids, (emb.to(torch.float32) * mask[..., None]).sum(
+        dim=2)
+
+
+def serve_fused_bwd_ref(g: torch.Tensor, memory: torch.Tensor,
+                        idx: torch.Tensor, bot: torch.Tensor, table_ids,
+                        dim: int, spec: RobeSpec) -> tuple:
+    """The serve op's cotangent g [B, (F+1)·F/2] -> (gM [|M|] in M's dtype,
+    gbot [B, dim] in bot's dtype), as the JAX package's ``_serve_bwd``:
+    the pooled features recomputed, the gram transpose applied to [bot;
+    pooled] in f32, and the pooled rows' cotangent broadcast over each bag,
+    zeroed at the -1 pads and scatter-added into M (sign-corrected, f32)."""
+    mask, safe, tids, pooled = _bags(memory, idx, table_ids, dim, spec)
+    feats = torch.cat([bot[:, None, :].to(torch.float32),
+                       pooled.to(bot.dtype).to(torch.float32)], dim=1)
+    dfeats = dot_interaction_bwd_ref(g.to(torch.float32), feats, False)
+    dpool = dfeats[:, 1:, None, :] * mask[..., None]      # [B, F, bag, dim]
+    if spec.use_sign:
+        dpool = dpool * robe_signs(spec, tids, safe, dim)
+    slots = robe_slots(spec, tids, safe, dim)
+    gm = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
+    gm.index_add_(0, slots.reshape(-1), dpool.reshape(-1))
+    return gm.to(memory.dtype), dfeats[:, 0].to(bot.dtype)
 
 
 def qr_indices(idx: torch.Tensor, q_off, r_off, m: int) -> tuple:
@@ -174,3 +229,53 @@ def tt_lookup_ref(core0: torch.Tensor, core1: torch.Tensor,
     t = torch.einsum("...ap,...pbq->...abq", c1, c2)
     e = torch.einsum("...abq,...qc->...abc", t, c3)
     return e.reshape(e.shape[:-3] + (dim,)).to(core0.dtype)
+
+
+def qr_lookup_bwd_ref(g: torch.Tensor, q_table: torch.Tensor,
+                      r_table: torch.Tensor, idx: torch.Tensor, q_off, r_off,
+                      m: int) -> tuple:
+    """The QR lookup's cotangent g [B, F, dim] -> (gQ, gR) in the tables'
+    dtype, by the product rule: each factor's row takes ``g`` times the
+    other factor's row, scatter-added in f32 (the JAX package's
+    ``_qr_bwd``)."""
+    q_idx, r_idx = qr_indices(idx, q_off, r_off, m)
+    q_idx, r_idx = q_idx.reshape(-1).long(), r_idx.reshape(-1).long()
+    dim = q_table.shape[1]
+    g32 = g.to(torch.float32).reshape(-1, dim)
+    qv = q_table[q_idx].to(torch.float32)
+    rv = r_table[r_idx].to(torch.float32)
+    gq = torch.zeros(q_table.shape, dtype=torch.float32, device=g.device)
+    gr = torch.zeros(r_table.shape, dtype=torch.float32, device=g.device)
+    gq.index_add_(0, q_idx, g32 * rv)
+    gr.index_add_(0, r_idx, g32 * qv)
+    return gq.to(q_table.dtype), gr.to(r_table.dtype)
+
+
+def tt_lookup_bwd_ref(g: torch.Tensor, core0: torch.Tensor,
+                      core1: torch.Tensor, core2: torch.Tensor,
+                      idx: torch.Tensor, offsets, factors) -> tuple:
+    """The tensor-train lookup's cotangent g [B, F, d1·d2·d3] -> the three
+    cores' gradients in their dtype: the chain rule through
+    ``e = (c1·c2)·c3`` per item, each core row's gradient scatter-added in
+    f32 (the JAX package's ``_tt_bwd``)::
+
+        t = c1·c2,  dc3 = tᵀ·g,  dt = g·c3ᵀ,  dc1 = dt·c2ᵀ,  dc2 = c1ᵀ·dt
+    """
+    i1, i2, i3 = (i.reshape(-1).long()
+                  for i in tt_indices(idx, offsets, factors))
+    d1, d2, d3 = core0.shape[1], core1.shape[2], core2.shape[2]
+    c1 = core0[i1].to(torch.float32)                 # [N, d1, r]
+    c2 = core1[i2].to(torch.float32)                 # [N, r, d2, r]
+    c3 = core2[i3].to(torch.float32)                 # [N, r, d3]
+    g32 = g.to(torch.float32).reshape(-1, d1, d2, d3)
+    t = torch.einsum("nap,npbq->nabq", c1, c2)
+    dc3 = torch.einsum("nabq,nabc->nqc", t, g32)
+    dt = torch.einsum("nabc,nqc->nabq", g32, c3)
+    dc1 = torch.einsum("nabq,npbq->nap", dt, c2)
+    dc2 = torch.einsum("nap,nabq->npbq", c1, dt)
+    out = []
+    for core, rows, d in ((core0, i1, dc1), (core1, i2, dc2),
+                          (core2, i3, dc3)):
+        acc = torch.zeros(core.shape, dtype=torch.float32, device=g.device)
+        out.append(acc.index_add_(0, rows, d).to(core.dtype))
+    return tuple(out)

@@ -54,10 +54,6 @@ class BwdPlan(NamedTuple):
     scratch_bytes: int
 
 
-def _align(n: int, a: int = 256) -> int:
-    return -(-n // a) * a
-
-
 def bwd_plan(spec: RobeSpec, n_fields: int, n_items: int,
              dim: int) -> BwdPlan:
     """The backward's plan for ``n_items`` (row, field) items of ``n_fields``
@@ -84,8 +80,8 @@ def bwd_plan(spec: RobeSpec, n_fields: int, n_items: int,
     nb = n_bands * n_fields
     blocks = min(SORT_BLOCKS, -(-n_items // SORT_THREADS))
     pairs = n_items * n_seg
-    scratch = _align(4 * nb * blocks) + 256 + _align(4 * pairs) + \
-        _align(8 * pairs)
+    scratch = _build.align(4 * nb * blocks) + 256 + _build.align(4 * pairs) \
+        + _build.align(8 * pairs)
     return BwdPlan(lw, n_seg, band_log2, n_bands, nb, blocks, scratch)
 
 

@@ -6,7 +6,14 @@ chain G1[i1]·G2[i2]·G3[i3] over the mixed-radix split of ``id + off[f]``,
 accumulated in f32 and rounded once to the cores' dtype.
 ``tt_lookup_ref`` is the plain PyTorch version it is held against.
 
-The kernel has one instance per rank in ``RANKS`` (the chain's rows held
+``tt_lookup_bwd_cuda`` launches ``csrc/tt_lookup_bwd.cu`` (the port of the
+JAX package's ``_tt_bwd``): the cotangent -> the three cores' gradients by
+the chain rule through ``(c1·c2)·c3``, the items sorted by the row of each
+core in turn (``csrc/row_sort.cuh``) so that a row's items are summed
+before they reach its atomics; every (dims, rank) the forward takes.
+``tt_lookup_bwd_ref`` is its plain version.
+
+The forward kernel has one instance per rank in ``RANKS`` (the chain's rows held
 in registers) and a path for any other rank; ``plan`` picks one from the
 shapes alone, and the launcher refuses an instance that does not match.
 """
@@ -17,9 +24,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import MAX_SMEM
-from repro_torch.kernels.ref import tt_lookup_ref
+from repro_torch.kernels.ref import tt_lookup_bwd_ref, tt_lookup_ref
 
-__all__ = ["tt_lookup_cuda", "tt_lookup_ref", "plan"]
+__all__ = ["tt_lookup_cuda", "tt_lookup_ref", "tt_lookup_bwd_cuda",
+           "tt_lookup_bwd_ref", "plan", "bwd_plan"]
 
 #: warps of a block of the ranked instances: kWarps in csrc/tt_lookup.cu
 WARPS = 2
@@ -50,6 +58,22 @@ def plan(d1: int, d2: int, d3: int, rank: int, itemsize: int,
             return rank, smem
     return 0, 4 * ANY_WARPS * (d1 * rank + rank * d2 * rank + rank * d3
                                + d1 * d2 * rank)
+
+
+def bwd_plan(d1: int, d2: int, d3: int, rank: int) -> tuple:
+    """(g's row staged in shared memory, warps of a block) of the
+    backward's walks; 0 warps: the shapes do not fit.  Mirrors the
+    launcher of csrc/tt_lookup_bwd.cu: a warp holds the three slices, t
+    and the largest row of the three gradients as f32 (at most twice an
+    item of the forward's any-rank path, so every shape the forward takes
+    fits), and g's row too when a block of kWalkWarps = 8 warps still fits;
+    otherwise g is read through L1."""
+    row = max(d1 * rank, rank * d2 * rank, rank * d3)
+    rest = 4 * (d1 * rank + rank * d2 * rank + rank * d3 + d1 * d2 * rank
+                + row)
+    staged = 8 * (rest + 4 * d1 * d2 * d3) <= MAX_SMEM
+    per_warp = rest + (4 * d1 * d2 * d3 if staged else 0)
+    return staged, min(8, MAX_SMEM // per_warp)
 
 
 def tt_lookup_cuda(core0: torch.Tensor, core1: torch.Tensor,
@@ -115,3 +139,76 @@ def tt_lookup_cuda(core0: torch.Tensor, core1: torch.Tensor,
 
 
 tt_lookup_cuda.launches = 0
+
+
+def tt_lookup_bwd_cuda(g: torch.Tensor, core0: torch.Tensor,
+                       core1: torch.Tensor, core2: torch.Tensor,
+                       idx: torch.Tensor, offsets, factors) -> tuple:
+    """The lookup's cotangent g [B, F, d1·d2·d3] in the cores' dtype (any
+    batch and field strides, elements contiguous), the three cores (any
+    alignment) and the [B, F] int32 ids in [0, vocab), on one CUDA device
+    -> the cores' gradients in their dtype, each row summed in f32 in no
+    fixed order."""
+    dev = core0.device
+    if not (g.is_cuda and core0.device == g.device and core1.device == dev
+            and core2.device == dev and idx.device == dev):
+        raise ValueError("tt_lookup_bwd_cuda needs g, the cores and idx on "
+                         "one CUDA device")
+    if not (core1.dtype == core0.dtype == core2.dtype == g.dtype):
+        raise ValueError("g and the three cores must share a dtype")
+    if core0.dim() != 3 or core1.dim() != 4 or core2.dim() != 3 or \
+            not all(c.is_contiguous() for c in (core0, core1, core2)):
+        raise ValueError("cores must be contiguous [n1, d1, r], "
+                         "[n2, r, d2, r] and [n3, r, d3]")
+    n1, d1, r = core0.shape
+    n2, d2, n3, d3 = core1.shape[0], core1.shape[2], core2.shape[0], \
+        core2.shape[2]
+    if core1.shape != (n2, r, d2, r) or core2.shape != (n3, r, d3):
+        raise ValueError(f"core shapes disagree on the rank: "
+                         f"{tuple(core0.shape)}, {tuple(core1.shape)}, "
+                         f"{tuple(core2.shape)}")
+    if tuple(int(n) for n in factors) != (n1, n2, n3):
+        raise ValueError(f"factors {tuple(factors)} are not the cores' rows "
+                         f"{(n1, n2, n3)}")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or \
+            not idx.is_contiguous():
+        raise ValueError(f"idx must be contiguous [B, F] int32, got "
+                         f"{idx.dtype} {tuple(idx.shape)}")
+    b, f = idx.shape
+    dim = d1 * d2 * d3
+    if g.shape != (b, f, dim) or g.stride(2) != 1:
+        raise ValueError(f"g must be [{b}, {f}, {dim}] with contiguous "
+                         f"elements, got {tuple(g.shape)} strides "
+                         f"{g.stride()}")
+    off = tuple(int(o) for o in offsets)
+    if len(off) != f:
+        raise ValueError(f"{len(off)} offsets for {f} fields")
+    if n1 * n2 * n3 >= 2 ** 31 or max(off) >= n1 * n2 * n3 or \
+            b * f >= 2 ** 31:
+        raise ValueError(f"global rows and B*F must stay below 2^31: "
+                         f"factors {(n1, n2, n3)}, B*F = {b * f}")
+    if bwd_plan(d1, d2, d3, r)[1] < 1:
+        raise ValueError(f"cores too wide for the backward's shared memory: "
+                         f"dims {(d1, d2, d3)}, rank {r}")
+    code = _build.dtype_code(g)
+    cores = (core0, core1, core2)
+    ws = [torch.zeros(c.shape, dtype=torch.float32, device=dev)
+          for c in cores]
+    outs = ws if g.dtype == torch.float32 else \
+        [torch.zeros(c.shape, dtype=g.dtype, device=dev) for c in cores]
+    if b == 0:
+        return tuple(outs)
+    nbytes = _build.row_sort_bytes(max(n1, n2, n3), b * f)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    err = _build.library().tt_lookup_bwd_launch(
+        g.data_ptr(), core0.data_ptr(), core1.data_ptr(), core2.data_ptr(),
+        idx.data_ptr(), *(w.data_ptr() for w in ws),
+        *(o.data_ptr() for o in outs), scratch.data_ptr(), nbytes, b * f,
+        code, g.stride(0), g.stride(1), _build.field_args(off), f, n1, n2,
+        n3, d1, d2, d3, r, _build.stream_ptr(g))
+    _build.check("tt_lookup_bwd", err)
+    tt_lookup_bwd_cuda.launches += 1
+    return tuple(outs)
+
+
+tt_lookup_bwd_cuda.launches = 0

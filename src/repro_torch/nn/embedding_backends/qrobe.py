@@ -7,11 +7,17 @@ unchanged ROBE hash and dequantizes inside the kernel
 (``codes_f32 · scale_f32[slot >> GROUP_LOG2] · sign``, one rounding into
 ``scale.dtype``), so the lookup reads a byte per weight instead of four.
 
-The params also hold the f32 ``delta`` carrier of the JAX package's
-straight-through training: zero between training steps, but part of the
-lookup, which adds ``delta[slot] · sign`` (on the card in the same
-``qrobe_lookup`` launch).  The post-step ``project`` fold
-and the delta's gradient path come with the training slice of the port.
+Training is the JAX package's: the scales are ordinary float leaves, whose
+gradient the op's backward delivers (``Σ g · sign · code`` over each
+group).  The int8 codes take no gradient; the params hold the f32
+``delta`` carrier of the straight-through estimator instead, zero between
+training steps but part of the lookup, which adds ``delta[slot] · sign``
+(on the card in the same ``qrobe_lookup`` launch), so that its gradient
+is the memory cotangent of the dequantized array (on the card from the
+same ``qrobe_lookup_bwd`` launch as the scales').  The optimizer updates
+``delta`` like any float leaf, and the post-step :meth:`project` folds
+``codes · scale + delta`` back into int8 codes under the updated scales
+and re-zeroes ``delta``.
 ``fused_serve`` and ``cacheable_rows`` are declined, as in the JAX
 package: the serve kernel and the hot-row cache speak f32 memories.
 """
@@ -87,12 +93,20 @@ class QRobeBackend(EmbeddingBackend):
                                      device=w.device)}
 
     def project(self, params, spec) -> dict:
-        """The post-step fold of ``delta`` into the codes (the JAX package's
-        ``project``), which comes with the qrobe training slice."""
-        raise NotImplementedError(
-            "qrobe's project (the post-step requantization) is not yet "
-            "ported: it comes with the next slice of the port, which trains "
-            "the compressed substrates (ROADMAP module item 1)")
+        """Post-optimizer projection (the JAX package's ALPT fold):
+        dequantize with the OLD codes, add the optimizer's delta update,
+        requantize under the (gradient-updated) scales and re-zero the
+        carrier.  Saturates at ±127; the scale floor keeps collapsed groups
+        recoverable.  Plain torch ops, bit for bit the JAX package's (one
+        rounding each for the product, the sum and the quotient, and
+        ``torch.round`` halves to even, as ``jnp.round``)."""
+        size = spec.robe.size
+        w = (params["codes"].to(torch.float32)
+             * _expand(params["scale"], size)
+             + params["delta"].to(torch.float32))
+        codes, scale = quantize_array(w, params["scale"])
+        return {"codes": codes, "scale": scale.to(params["scale"].dtype),
+                "delta": torch.zeros_like(params["delta"])}
 
     def lookup(self, params, spec, idx, fields=None):
         fields = tuple(fields if fields is not None

@@ -13,6 +13,8 @@ other places).  A CPU call must launch no kernel: every ``launches`` count
 stays 0.
 """
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -588,14 +590,16 @@ def test_interaction_sym_doubles_the_diagonal():
 
 
 # ---------------------------------------------------------------------------
-# dispatch: CPU tensors take the plain path, other devices raise, and the
-# forward-only ops refuse a backward
+# dispatch: CPU tensors take the plain path, other devices raise, and
+# every op has a backward
 # ---------------------------------------------------------------------------
 
 def test_ops_refuse_backward():
-    """``robe_lookup`` and ``dot_interaction`` have backwards (see
-    tests/test_torch_train.py); the four forward-only ops raise, naming
-    the slice that brings theirs."""
+    """Every op now has a backward: each of the four that were forward
+    only (``serve_fused``, ``qrobe_lookup``, ``qr_lookup``, ``tt_lookup``)
+    runs one and gives its inputs' gradients, with ``robe_lookup`` and
+    ``dot_interaction`` as before; none refuses (the plain backwards are
+    held against the JAX package in tests/test_torch_substrate_train.py)."""
     _, ts = _specs(16, False)
     mem = torch.randn(4096, requires_grad=True)
     rows = torch.randint(0, 100, (3, 2), dtype=torch.int32)
@@ -605,25 +609,30 @@ def test_ops_refuse_backward():
     tops.dot_interaction(feats).sum().backward()
     assert feats.grad.shape == (3, 4, 8)
     codes = torch.zeros(4096, dtype=torch.int8)
+    codes[::3] = 5
     scale = torch.ones(16, requires_grad=True)
+    delta = torch.zeros(4096, requires_grad=True)
     cores = [torch.randn(s, requires_grad=True)
              for s in ((4, 2, 3), (4, 3, 2, 3), (4, 3, 2))]
     q, r = (torch.randn(5, 8, requires_grad=True),
             torch.randn(8, 8, requires_grad=True))
     ids = torch.randint(0, 8, (3, 2), dtype=torch.int32)
+    bot = torch.randn(3, 16, requires_grad=True)
     outs = {
-        "serve_fused": tops.serve_fused(mem, rows, torch.randn(3, 16),
-                                        (0, 1), 16, ts),
-        "qrobe_lookup": tops.qrobe_lookup(codes, scale, rows, (0, 1), 16, ts,
-                                          GROUP_LOG2),
-        "qr_lookup": tops.qr_lookup(q, r, ids, (0, 3), (0, 4), 4),
-        "tt_lookup": tops.tt_lookup(*cores, ids, (0, 10), (4, 4, 4), 8),
+        "serve_fused": (tops.serve_fused(mem, rows, bot, (0, 1), 16, ts),
+                        (mem, bot)),
+        "qrobe_lookup": (tops.qrobe_lookup(codes, scale, rows, (0, 1), 16, ts,
+                                           GROUP_LOG2, delta=delta),
+                         (scale, delta)),
+        "qr_lookup": (tops.qr_lookup(q, r, ids, (0, 3), (0, 4), 4), (q, r)),
+        "tt_lookup": (tops.tt_lookup(*cores, ids, (0, 10), (4, 4, 4), 8),
+                      tuple(cores)),
     }
-    for name, out in outs.items():
-        later = "slice after" if name == "serve_fused" else "next slice"
-        with pytest.raises(NotImplementedError,
-                           match=f"backward of {name} .*{later}"):
-            out.sum().backward()
+    for name, (out, inputs) in outs.items():
+        grads = torch.autograd.grad(out.sum(), inputs)
+        for x, g in zip(inputs, grads):
+            assert g.shape == x.shape and g.dtype == x.dtype, name
+            assert torch.isfinite(g).all() and bool(g.any()), name
 
 
 def test_backward_saves_nothing_without_grad():
@@ -694,6 +703,53 @@ def test_backward_wrappers_refuse_cpu_tensors():
         tk.robe_lookup_bwd_cuda(torch.randn(3, 2, 16), rows, (0, 1), 16, ts)
     with pytest.raises(ValueError, match="CUDA"):
         tk.dot_interaction_bwd_cuda(torch.randn(2, 3), torch.randn(2, 3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.qrobe_lookup_bwd_cuda(torch.randn(3, 2, 16),
+                                 torch.zeros(4096, dtype=torch.int8), rows,
+                                 (0, 1), 16, ts, GROUP_LOG2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.qr_lookup_bwd_cuda(torch.randn(3, 2, 8), torch.randn(5, 8),
+                              torch.randn(8, 8), rows, (0, 3), (0, 4), 4)
+    cores = (torch.randn(4, 2, 3), torch.randn(4, 3, 2, 3),
+             torch.randn(4, 3, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.tt_lookup_bwd_cuda(torch.randn(3, 2, 8), *cores, rows, (0, 10),
+                              (4, 4, 4))
+    from repro_torch.kernels.serve_fused import serve_fused_bwd_cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        serve_fused_bwd_cuda(torch.randn(3, 3), torch.randn(4096), rows,
+                             torch.randn(3, 16), (0, 1), 16, ts)
+
+
+def test_substrate_bwd_layouts_match_the_kernel_sources():
+    """The scratch of the substrates' backward sorts and tt's walk plan,
+    as the wrappers size them, are what csrc/row_sort.cuh and
+    csrc/tt_lookup_bwd.cu compute: a 4-byte count a key and an 8-byte
+    (item, key) pair an item, each 256-byte aligned; 8 warps a block of a
+    walk at most, fewer when a warp's f32 stage is large, g's row staged
+    only while 8 warps fit."""
+    import importlib
+    from repro_torch.kernels import _build
+    tt = importlib.import_module("repro_torch.kernels.tt_lookup")
+    sort_src = (_build.CSRC / "row_sort.cuh").read_text()
+    tt_src = (_build.CSRC / "tt_lookup_bwd.cu").read_text()
+    assert "rs_align(4 * (size_t)n_keys) + rs_align(8 * (size_t)n_items)" \
+        in sort_src
+    assert _build.row_sort_bytes(589, 65536 * 26) == 2560 + 13_631_488
+    assert _build.row_sort_bytes(1, 1) == 512
+    assert _const("kWalkWarps", tt_src) == 8
+    # full width: g's row (128), the slices (16, 512, 64), t (128) and the
+    # largest row (512): 1,360 floats a warp, eight warps a block
+    assert tt.bwd_plan(2, 8, 8, 8) == (True, 8)
+    assert tt.bwd_plan(1, 1, 1, 1) == (True, 8)
+    # 64,000-wide rows: g is read through L1, and 8 warps still fit
+    assert tt.bwd_plan(8, 8, 1000, 1) == (False, 8)
+    # the backward takes every shape the forward takes, its any-rank path's
+    # widest items and dims far past a warp's shared memory included
+    for d1, d2, d3, r in itertools.product((1, 2, 8, 64), (1, 8, 64),
+                                           (1, 3, 8, 700), (1, 3, 8, 16)):
+        if tt.plan(d1, d2, d3, r, 4, aligned=False)[1] <= _build.MAX_SMEM:
+            assert tt.bwd_plan(d1, d2, d3, r)[1] >= 1, (d1, d2, d3, r)
 
 
 def _const(name: str, text: str) -> int:
@@ -792,11 +848,17 @@ def test_bwd_sym_map_gathers_interaction_sym(f, self_int):
 
 def test_robe_lookup_bwd_constants_match_the_kernel_source():
     """BAND_LOG2, MAX_BUCKETS and MAX_SEG_LOG2 of kernels/robe_lookup.py
-    are the constants csrc/robe_lookup_bwd.cu builds with."""
+    are the constants csrc/robe_lookup_bwd.cu builds with (from the
+    scatter's header, csrc/robe_scatter.cuh, which qrobe_lookup_bwd.cu
+    shares)."""
     import importlib
     from repro_torch.kernels import _build
     rl = importlib.import_module("repro_torch.kernels.robe_lookup")
-    src = (_build.CSRC / "robe_lookup_bwd.cu").read_text()
+    assert '#include "robe_scatter.cuh"' in (
+        _build.CSRC / "robe_lookup_bwd.cu").read_text()
+    assert '#include "robe_scatter.cuh"' in (
+        _build.CSRC / "qrobe_lookup_bwd.cu").read_text()
+    src = (_build.CSRC / "robe_scatter.cuh").read_text()
     assert _const("kBandLog2", src) == rl.BAND_LOG2
     assert _const("kMaxBuckets", src) == rl.MAX_BUCKETS
     assert _const("kSegLog2", src) == rl.MAX_SEG_LOG2

@@ -269,11 +269,22 @@ def test_make_project_fn():
     for arch in ("dlrm-rm2", "dlrm-criteo-tb"):
         for emb in ("robe", "hashed", "tt"):
             assert trec.make_project_fn(_configs(arch, emb)[1]) is None
-    # qrobe's fold is the next slice's: building the hook works, running
-    # it raises and says so
-    project = trec.make_project_fn(_configs("dlrm-rm2", "qrobe")[1])
-    with pytest.raises(NotImplementedError, match="next slice"):
-        project({"embedding": {}})
+    # qrobe's fold: the hook runs on the whole param dict, requantizes the
+    # embedding subtree, re-zeroes delta and leaves the rest as it was
+    qcfg = _configs("dlrm-rm2", "qrobe")[1]
+    project = trec.make_project_fn(qcfg)
+    size = qcfg.embedding_spec().robe.size
+    codes = torch.zeros(size, dtype=torch.int8)
+    codes[:2] = torch.tensor([3, -2], dtype=torch.int8)
+    delta = torch.zeros(size)
+    delta[:2] = torch.tensor([0.26, -0.74])
+    emb = {"codes": codes, "scale": torch.full((-(-size // 256),), 0.5),
+           "delta": delta}
+    top = [torch.ones(2)]
+    out = project({"embedding": emb, "top": top})
+    assert out["top"] is top
+    assert out["embedding"]["codes"][:3].tolist() == [4, -3, 0]
+    assert not bool(out["embedding"]["delta"].any())
     other = dataclasses.replace(_configs("dlrm-rm2")[1], arch="dcn")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         trec.make_project_fn(other)

@@ -220,6 +220,13 @@ def subst(text: str, rules, name: str) -> str:
 def variant(csrc: Path, tag: str, name: str, src: str, nogram=False,
             nosign=False, part=None):
     text = (csrc / src).read_text()
+    if src == "robe_lookup_bwd.cu" and "robe_scatter.cuh" in text:
+        # the passes live in a shared header: inline it, so the marked
+        # sites are in the variant's own text
+        text = text.replace(
+            '#include "robe_scatter.cuh"',
+            (csrc / "robe_scatter.cuh").read_text().replace(
+                "#pragma once\n", ""))
     if nogram and is_old(csrc):
         text = text.replace('#include "robe_common.cuh"',
                             '#include "robe_common.cuh"\n' + SKIP_OLD)
