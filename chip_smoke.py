@@ -42,11 +42,17 @@ non-zero on failure:
    a batch of 1,024 of its stream; ``qrobe_lookup_bwd`` (the scales' and
    delta's gradients) at every ``ROBE_REGIMES`` (d, Z) and B in 1, 509,
    512, on the zipf batch, on wrap rows and on an array whose last scale
-   group (5 slots) is shorter than Z; ``qr_lookup_bwd`` at B in 1, 509,
-   512 and on the zipf batch (13 fields of a single quotient row), g
-   contiguous and at the concat's strides; ``tt_lookup_bwd`` at full
-   width, off 16-byte alignment, on the zipf batch and on it with one
-   field at a single id, and at ``TT_SHAPES``; ``serve_fused``'s backward
+   group (5 slots) is shorter than Z; ``qr_lookup_bwd`` at B in 1, 2,
+   509, 512, on the zipf batch (13 fields of a single quotient row) and on
+   it with a multi-Q-row field at one id, and on small tables at m = 1 and
+   at m above every vocab, g contiguous and at the concat's strides;
+   ``tt_lookup_bwd`` at full width (its ranked walk), off 16-byte
+   alignment, at B in 1, 2, 509, 512, on the zipf batch, on it with one
+   field at a single id and with one field whose samples share core1's
+   row (an i2 run far longer than a group's share of the places), g also
+   at the concat's strides, and at ``TT_SHAPES`` aligned and not (ranks 4
+   and 8 on the ranked walk, rank 3 and 64,000-wide rows on the first
+   design's walks, as ``bwd_plan`` says); ``serve_fused``'s backward
    (composed of ``robe_lookup``, ``dot_interaction_bwd`` and
    ``robe_lookup_bwd``) at the forward's shapes, dM and dbot; each in f32
    and bf16; ``dot_interaction_bwd`` at full width (F = 27, D = 128)
@@ -149,6 +155,8 @@ from repro_torch.kernels.ref import (dot_interaction_bwd_ref,
                                      tt_lookup_ref)
 from repro_torch.kernels import ops
 from repro_torch.kernels.robe_lookup import bwd_plan
+from repro_torch.kernels.tt_lookup import RANKS as TT_RANKS
+from repro_torch.kernels.tt_lookup import bwd_plan as tt_bwd_plan
 from repro_torch.kernels.serve_fused import serve_fused_bwd_cuda
 from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
                                        loss_fn, make_project_fn)
@@ -184,6 +192,8 @@ ROBE_REGIMES = ((24, 16), (16, 16), (8, 32), (40, 1), (D, 32))
 #: rank 3, which has no instance of its own
 TT_SHAPES = ((24, 4), (18, 8), (16, 8), (24, 3))
 PHASE2_BATCHES = (1, 509, 512)
+#: the substrate backwards' batches (B = 2: two items a field)
+SUB_BWD_BATCHES = (1, 2, 509, 512)
 SCORE_TOL = 1e-4
 #: the scatter's bound: |got - want| <= rel · A + abs slot by slot, A the
 #: scatter of |g| (a sum of aliased terms in no fixed order)
@@ -342,6 +352,25 @@ def qr_args(subs) -> tuple:
     m = default_buckets(vocabs)
     _, q_off, r_off = qr_layout(vocabs, m)
     return tuple(map(int, q_off)), tuple(map(int, r_off)), m
+
+
+def shared_i2(gen, rows, offsets, factors, field=None) -> torch.Tensor:
+    """``rows`` with every sample of ``field`` (by default the one of the
+    largest vocabulary) moved to one core1 row i2, its i1 and i3 drawn
+    uniformly among those whose global row stays inside the field."""
+    n1, n2, n3 = factors
+    f = field if field is not None else max(
+        range(F), key=lambda k: CRITEO_TB_VOCABS[k])
+    lo, hi = offsets[f], offsets[f] + CRITEO_TB_VOCABS[f]
+    first, last = -(-lo // (n2 * n3)), hi // (n2 * n3) - 1
+    require(last > first, f"field {f} spans no whole i1")
+    b = rows.shape[0]
+    dev = rows.device
+    i1 = torch.randint(first, last, (b,), generator=gen, device=dev)
+    i3 = torch.randint(0, n3, (b,), generator=gen, device=dev)
+    out = rows.clone()
+    out[:, f] = ((i1 * n2 + 7) * n3 + i3 - lo).to(torch.int32)
+    return out
 
 
 def tt_args(subs) -> tuple:
@@ -565,7 +594,7 @@ def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
 
     zipf = bulk_inputs(gen, dev, B_TRAIN, 1)[0]
     # ids in the vocabularies; the qrobe lookup also takes a row of 2^31 - 1
-    small = [(rows[:b], f"B={b}") for b in PHASE2_BATCHES]
+    small = [(rows[:b], f"B={b}") for b in SUB_BWD_BATCHES]
     dtypes = (torch.float32, torch.bfloat16)
 
     # qrobe_lookup_bwd: every regime of the block hash at B = 1, 509, 512;
@@ -607,32 +636,56 @@ def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
     del cases, short_codes
     torch.cuda.synchronize()
 
-    # qr_lookup_bwd: the full-width tables at B = 1, 509, 512 and on the
-    # zipf batch (13 fields of a single Q row: chains of B), g also at the
-    # strides of the model's concat
+    # qr_lookup_bwd: the full-width tables at B = 1, 2, 509, 512, on the
+    # zipf batch (13 fields of a single Q row: chains of B) and on it with
+    # a multi-Q-row field at one id; small tables at m = 1 (a single R row
+    # a field) and at m above every vocab (a single Q row a field); g also
+    # at the strides of the model's concat
     hp = subs.params("hashed")["embedding"]
     q_off, r_off, m = qr_args(subs)
-    for (idx, what), dt, strided in itertools.product(
-            small + [(zipf, f"zipf B={B_TRAIN}")], dtypes, (False, True)):
-        q, r = hp["q_table"].to(dt), hp["r_table"].to(dt)
+    full = (hp["q_table"], hp["r_table"], q_off, r_off, m)
+    one_q = zipf.clone()
+    multi = next(f for f in range(F) if CRITEO_TB_VOCABS[f] > 4 * m)
+    one_q[:, multi] = 3 * m + 17
+    qr_cases = [(idx, full, what) for idx, what in small + [
+        (zipf, f"zipf B={B_TRAIN}"),
+        (one_q, f"zipf, field {multi} at one id")]]
+    vocab = 1000
+    small_ids = torch.randint(0, vocab, (509, F), generator=gen, device=dev,
+                              dtype=torch.int32)
+    for mm in (1, 4096):
+        q_rows = -(-vocab // mm)
+        qr_cases.append((small_ids, (
+            torch.randn((F * q_rows, D), generator=gen, device=dev),
+            torch.randn((F * mm, D), generator=gen, device=dev),
+            tuple(f * q_rows for f in range(F)),
+            tuple(f * mm for f in range(F)), mm),
+            f"vocab {vocab} m={mm}"))
+    for (idx, (q, r, qo, ro, mm), what), dt, strided in itertools.product(
+            qr_cases, dtypes, (False, True)):
+        q, r = q.to(dt), r.to(dt)
         g = torch.randn((idx.shape[0], F + 1, D), generator=gen,
                         device=dev).to(dt)
         g = g[:, 1:] if strided else g[:, 1:].contiguous()
-        got = qr_lookup_bwd_cuda(g, q, r, idx, q_off, r_off, m)
-        want = qr_lookup_bwd_ref(g, q, r, idx, q_off, r_off, m)
+        got = qr_lookup_bwd_cuda(g, q, r, idx, qo, ro, mm)
+        want = qr_lookup_bwd_ref(g, q, r, idx, qo, ro, mm)
         a = qr_lookup_bwd_ref(g.abs().float(), q.abs().float(),
-                              r.abs().float(), idx, q_off, r_off, m)
+                              r.abs().float(), idx, qo, ro, mm)
         for name, x, y, z in zip(("dQ", "dR"), got, want, a):
             held("qr_lookup_bwd", x, y, z,
                  f"{name} {what} strided={strided} {dt}")
         del g, got, want, a
+    del qr_cases, one_q, small_ids
     torch.cuda.synchronize()
 
-    # tt_lookup_bwd: the full-width cores (the forward's rank-8 instance)
-    # and the same cores off 16-byte alignment, at B = 1, 509, 512, on the
-    # zipf batch and on it with one field at a single id (every item of the
-    # field shares i1, i2 and i3); narrow cores at each TT_SHAPES; rows too
-    # wide to stage
+    # tt_lookup_bwd: the full-width cores (the ranked walk at rank 8) and
+    # the same cores off 16-byte alignment, at B = 1, 2, 509, 512, on the
+    # zipf batch, on it with one field at a single id (every item of the
+    # field shares i1, i2 and i3) and with one field whose samples share
+    # i2 but not i1 or i3 (an i2 run far longer than a group's share of the
+    # places), g also at the concat's strides; narrow cores at each
+    # TT_SHAPES, aligned and not (ranks 4 and 8 on the ranked walk, rank 3
+    # on the first design's walks); rows too wide to stage
     tp = subs.params("tt")["embedding"]
     offsets, factors = tt_args(subs)
     n1, n2, n3 = factors
@@ -642,13 +695,21 @@ def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
     tt_cases = [("full width", wide, D, idx, what)
                 for idx, what in small + [(zipf, f"zipf B={B_TRAIN}"),
                                           (chain, "one id in field 5")]]
-    tt_cases.append(("unaligned", wide, D, rows[:509], "B=509"))
+    for idx, what in ((rows[:509], "B=509"),
+                      (shared_i2(gen, rows[:509], offsets, factors),
+                       "B=509, one i2 in a field"),
+                      (shared_i2(gen, zipf, offsets, factors),
+                       f"zipf B={B_TRAIN}, one i2 in a field")):
+        tt_cases += [(name, wide, D, idx, what)
+                     for name in ("full width", "unaligned", "strided")]
     for dim, rank in TT_SHAPES:
         d1, d2, d3 = factor_dim(dim)
         cores = [torch.randn(shape, generator=gen, device=dev) for shape in
                  ((n1, d1, rank), (n2, rank, d2, rank), (n3, rank, d3))]
         tt_cases += [(f"rank {rank} d={dim}", cores, dim, idx, what)
                      for idx, what in small]
+        tt_cases.append((f"unaligned rank {rank} d={dim}", cores, dim,
+                         rows[:509], "B=509"))
     # rows of 64,000 elements at rank 1, which a block of the walk cannot
     # stage: g's row is read through L1 (tt_lookup.bwd_plan)
     cores = [torch.randn(shape, generator=gen, device=dev) for shape in
@@ -658,11 +719,19 @@ def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
     for (name, cores, dim, idx, what), dt in itertools.product(tt_cases,
                                                                dtypes):
         c = [x.to(dt) for x in cores]
-        if name == "unaligned":   # one element past an aligned start
+        if name.startswith("unaligned"):   # one element past an aligned start
             c = [torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
                  .view(x.shape).copy_(x) for x in c]
-        g = torch.randn((idx.shape[0], F, dim), generator=gen,
-                        device=dev).to(dt)
+        rank, d1, d2, d3 = c[0].shape[2], c[0].shape[1], c[1].shape[2], \
+            c[2].shape[2]
+        want_inst = rank if rank in TT_RANKS else 0
+        inst = tt_bwd_plan(d1, d2, d3, rank, n1, n2, n3).instance
+        require(inst == want_inst,
+                f"tt_lookup_bwd {name}: rank {rank} should take "
+                f"{'the ranked walk' if want_inst else 'the first design'}")
+        g = torch.randn((idx.shape[0], F + (name == "strided"), dim),
+                        generator=gen, device=dev).to(dt)
+        g = g[:, 1:] if name == "strided" else g
         got = tt_lookup_bwd_cuda(g, *c, idx, offsets, factors)
         want = tt_lookup_bwd_ref(g, *c, idx, offsets, factors)
         a = tt_lookup_bwd_ref(g.abs().float(), *(x.abs().float() for x in c),

@@ -74,12 +74,17 @@ def align(n: int, a: int = 256) -> int:
     return -(-n // a) * a
 
 
+#: keys of a tile of the sorts' scan: kRsTile in csrc/row_sort.cuh
+SORT_TILE = 4096
+
+
 def row_sort_bytes(n_keys: int, n_items: int) -> int:
     """Scratch bytes of one sort of ``n_items`` items by ``n_keys`` keys in
     the backwards of the compressed substrates (``rs_scratch_bytes`` in
-    csrc/row_sort.cuh): a count a key, then an (item, key) pair an item,
-    each part 256-byte aligned."""
-    return align(4 * n_keys) + align(8 * n_items)
+    csrc/row_sort.cuh): a count a key, a sum a tile of the scan, then an
+    (item, key) pair an item, each part 256-byte aligned."""
+    return (align(4 * n_keys) + align(4 * -(-n_keys // SORT_TILE))
+            + align(8 * n_items))
 
 
 def _nvcc() -> str:

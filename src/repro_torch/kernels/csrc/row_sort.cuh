@@ -13,18 +13,22 @@
 //    so equal keys meet in a warp), __match_any_sync groups a warp's equal
 //    keys, and one lane of each group adds the group's size: a counter
 //    receives at most one atomic per warp window;
-//  - rs_scan_kernel, one block, turns the counts into each key's first
-//    place (an exclusive scan, in key order, a tile of 4,096 keys at a
-//    time);
+//  - rs_scan_kernel turns the counts into each key's first place (an
+//    exclusive scan, in key order, in tiles of kRsTile = 4,096 keys): one
+//    block walks the tiles one after another where there is one tile;
+//    otherwise rs_tile_sum_kernel sums every tile, one block a tile, one
+//    block scans the tiles' sums, and a block a tile scans its tile from
+//    its sum's place (the QR backward's 212,992 R rows are 52 tiles);
 //  - rs_pass_kernel<Key, true> walks the batch the same way and writes each
 //    item and its key at its key's next place (one atomic per group on
 //    the key's cursor), so the sorted array holds each key's items in one
 //    segment, keys ascending;
-//  - the caller's walk then gives each warp kRsChunk consecutive places:
-//    it sums its items' contributions to one row in registers or shared
-//    memory while the key stays the same, and sends the sum to the row
-//    when the key changes and at the end of its chunk.  A row receives at
-//    most ceil(segment / kRsChunk) + 1 atomics per element, however hot.
+//  - the caller's walk then gives each warp (or each group of a warp's
+//    lanes) a chunk of consecutive places: it sums its items'
+//    contributions to one row in registers while the key stays the same,
+//    and sends the sum to the row when the key changes and at the end of
+//    its chunk.  A row receives at most ceil(segment / chunk) + 1 atomics
+//    per element, however hot.
 #pragma once
 
 #include "robe_common.cuh"
@@ -37,27 +41,39 @@ constexpr int kRsThreads = 256;       // threads of a block of the passes
 constexpr int kRsScanThreads = 1024;  // the scan's one block
 constexpr int kRsMaxBlocks = 4096;    // blocks of a pass at most
 constexpr int kRsChunk = 128;         // sorted places a warp of a walk takes
+constexpr int kRsTile = 4 * kRsScanThreads;   // keys of a tile of the scan
 
-// The scratch of one sort: a count (then a cursor) for every key, and the
-// sorted (item, key) pairs.
+// The scratch of one sort: a count (then a cursor) for every key, a sum
+// (then a first place) for every tile of the scan, and the sorted (item,
+// key) pairs.
 struct RowSort {
   int* cnt;
+  int* tiles;
   uint2* sorted;
 };
 
 static inline size_t rs_align(size_t n) { return (n + 255) & ~(size_t)255; }
 
+static inline long long rs_tiles(long long n_keys) {
+  return (n_keys + kRsTile - 1) / kRsTile;
+}
+
 // Bytes of scratch a sort of n_items items over n_keys keys needs
 // (kernels/_build.py's row_sort_bytes mirrors it).
 static inline size_t rs_scratch_bytes(long long n_keys, long long n_items) {
-  return rs_align(4 * (size_t)n_keys) + rs_align(8 * (size_t)n_items);
+  return rs_align(4 * (size_t)n_keys) +
+         rs_align(4 * (size_t)rs_tiles(n_keys)) +
+         rs_align(8 * (size_t)n_items);
 }
 
 static inline RowSort rs_carve(void* base, long long n_keys) {
   char* c = static_cast<char*>(base);
+  const size_t at = rs_align(4 * (size_t)n_keys);
   RowSort w;
   w.cnt = reinterpret_cast<int*>(c);
-  w.sorted = reinterpret_cast<uint2*>(c + rs_align(4 * (size_t)n_keys));
+  w.tiles = reinterpret_cast<int*>(c + at);
+  w.sorted = reinterpret_cast<uint2*>(
+      c + at + rs_align(4 * (size_t)rs_tiles(n_keys)));
   return w;
 }
 
@@ -104,16 +120,47 @@ __global__ void __launch_bounds__(kRsThreads)
   }
 }
 
-// cnt[0, n) -> its exclusive scan, in place, by one block, in tiles of
-// 4 * kRsScanThreads keys: each thread scans four consecutive counts, the
-// block its threads' sums, and a carry runs from tile to tile.
+// The block's threads' sum of v (every thread gets it); red: kRsScanThreads
+// / 32 ints of shared memory.
+__device__ __forceinline__ int rs_block_sum(int v, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kRsFull, v, o);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[lane];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kRsFull, v, o);
+  __syncthreads();   // red is free again
+  return v;
+}
+
+// tiles[t] = the sum of cnt over tile t, one block a tile.
 __global__ void __launch_bounds__(kRsScanThreads)
-    rs_scan_kernel(int* cnt, int n) {
+    rs_tile_sum_kernel(const int* __restrict__ cnt, int n,
+                       int* __restrict__ tiles) {
+  __shared__ int red[kRsScanThreads / 32];
+  const int base = blockIdx.x * kRsTile + 4 * threadIdx.x;
+  int v = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v += base + u < n ? cnt[base + u] : 0;
+  v = rs_block_sum(v, red);
+  if (threadIdx.x == 0) tiles[blockIdx.x] = v;
+}
+
+// cnt[0, n) -> its exclusive scan, in place, in tiles of kRsTile keys:
+// each thread scans four consecutive counts, the block its threads' sums.
+// With first == nullptr one block walks every tile, a carry running from
+// tile to tile; otherwise block t scans tile t from first[t].
+__global__ void __launch_bounds__(kRsScanThreads)
+    rs_scan_kernel(int* cnt, int n, const int* __restrict__ first) {
   __shared__ int warp_tot[kRsScanThreads / 32];
   __shared__ int tile_tot;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int carry = 0;
-  for (int t0 = 0; t0 < n; t0 += 4 * kRsScanThreads) {
+  int carry = first ? first[blockIdx.x] : 0;
+  const int t_end = first ? min(n, (blockIdx.x + 1) * kRsTile) : n;
+  for (int t0 = first ? blockIdx.x * kRsTile : 0; t0 < t_end;
+       t0 += kRsTile) {
     const int base = t0 + 4 * tid;
     int v[4];
 #pragma unroll
@@ -161,7 +208,17 @@ static inline int rs_sort(const Key& key, int n_items, int batch,
   const int grid = (int)(need < kRsMaxBlocks ? need : kRsMaxBlocks);
   rs_pass_kernel<Key, false><<<grid, kRsThreads, 0, st>>>(
       key, n_items, batch, n_fields, w);
-  rs_scan_kernel<<<1, kRsScanThreads, 0, st>>>(w.cnt, (int)n_keys);
+  const long long tiles = rs_tiles(n_keys);
+  if (tiles == 1) {
+    rs_scan_kernel<<<1, kRsScanThreads, 0, st>>>(w.cnt, (int)n_keys, nullptr);
+  } else {
+    rs_tile_sum_kernel<<<(int)tiles, kRsScanThreads, 0, st>>>(
+        w.cnt, (int)n_keys, w.tiles);
+    rs_scan_kernel<<<1, kRsScanThreads, 0, st>>>(w.tiles, (int)tiles,
+                                                 nullptr);
+    rs_scan_kernel<<<(int)tiles, kRsScanThreads, 0, st>>>(
+        w.cnt, (int)n_keys, w.tiles);
+  }
   rs_pass_kernel<Key, true><<<grid, kRsThreads, 0, st>>>(
       key, n_items, batch, n_fields, w);
   return (int)cudaGetLastError();

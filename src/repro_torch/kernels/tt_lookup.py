@@ -8,9 +8,12 @@ accumulated in f32 and rounded once to the cores' dtype.
 
 ``tt_lookup_bwd_cuda`` launches ``csrc/tt_lookup_bwd.cu`` (the port of the
 JAX package's ``_tt_bwd``): the cotangent -> the three cores' gradients by
-the chain rule through ``(c1·c2)·c3``, the items sorted by the row of each
-core in turn (``csrc/row_sort.cuh``) so that a row's items are summed
-before they reach its atomics; every (dims, rank) the forward takes.
+the chain rule through ``(c1·c2)·c3``.  At ranks 4 and 8 (d1 <= 2, d2 <= 8,
+r·d3 <= 64) the items are sorted once, by core1's and core2's rows
+(``csrc/row_sort.cuh``), and walked once, a run's core1 slice and gradient
+in registers, core0's and core2's gradients summed in registers while their
+row repeats; other shapes sort and walk once for each core.  ``bwd_plan``
+mirrors the choice; every (dims, rank) the forward takes is taken.
 ``tt_lookup_bwd_ref`` is its plain version.
 
 The forward kernel has one instance per rank in ``RANKS`` (the chain's rows held
@@ -20,6 +23,8 @@ shapes alone, and the launcher refuses an instance that does not match.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -27,14 +32,26 @@ from repro_torch.kernels._build import MAX_SMEM
 from repro_torch.kernels.ref import tt_lookup_bwd_ref, tt_lookup_ref
 
 __all__ = ["tt_lookup_cuda", "tt_lookup_ref", "tt_lookup_bwd_cuda",
-           "tt_lookup_bwd_ref", "plan", "bwd_plan"]
+           "tt_lookup_bwd_ref", "plan", "bwd_plan", "bwd_split",
+           "TtBwdPlan"]
 
 #: warps of a block of the ranked instances: kWarps in csrc/tt_lookup.cu
 WARPS = 2
 #: warps of a block of the any-rank path: kAnyWarps in csrc/tt_lookup.cu
 ANY_WARPS = 8
-#: ranks with an instance of their own: kRanks in csrc/tt_lookup.cu
+#: ranks with an instance of their own: kRanks in csrc/tt_lookup.cu, and
+#: kTbRanks in csrc/tt_lookup_bwd.cu
 RANKS = (4, 8)
+#: the backward's ranked walk: warps of a block (kTbWarps) and lanes of an
+#: item (kTbLanes) in csrc/tt_lookup_bwd.cu
+BWD_WARPS, BWD_LANES = 8, 8
+#: warps of a block of the backward's first-design walks: kWalkWarps
+BWD_WALK_WARPS = 8
+#: the ranked walk's largest core2 row (r·d3, kTbMaxRow3) and sort keys
+#: (n2·n3, kTbMaxKeys); the core0 rows a group keeps (kTbSlots) and the
+#: largest block copy of core0's gradient, in floats (kTbMaxCopy)
+BWD_MAX_ROW3, BWD_MAX_KEYS = 64, 1 << 24
+BWD_SLOTS, BWD_MAX_COPY = 8, 16384
 
 
 def _pad16(n: int) -> int:
@@ -60,20 +77,58 @@ def plan(d1: int, d2: int, d3: int, rank: int, itemsize: int,
                                + d1 * d2 * rank)
 
 
-def bwd_plan(d1: int, d2: int, d3: int, rank: int) -> tuple:
-    """(g's row staged in shared memory, warps of a block) of the
-    backward's walks; 0 warps: the shapes do not fit.  Mirrors the
-    launcher of csrc/tt_lookup_bwd.cu: a warp holds the three slices, t
-    and the largest row of the three gradients as f32 (at most twice an
-    item of the forward's any-rank path, so every shape the forward takes
-    fits), and g's row too when a block of kWalkWarps = 8 warps still fits;
-    otherwise g is read through L1."""
+class TtBwdPlan(NamedTuple):
+    """How csrc/tt_lookup_bwd.cu takes a backward of these shapes."""
+    instance: int   # the ranked walk's rank, or 0: three sorts and walks
+    smem: int       # shared memory bytes of a block of the walk taken
+    keys: int       # keys of the walk's largest sort
+    staged: bool    # the first design: g's row staged in shared memory
+    warps: int      # the first design's warps a block; 0: does not fit
+
+
+def bwd_plan(d1: int, d2: int, d3: int, rank: int, n1: int = 1,
+             n2: int = 1, n3: int = 1) -> TtBwdPlan:
+    """Mirrors ``tb_instance`` and the launcher of csrc/tt_lookup_bwd.cu.
+    The ranked walk takes a rank in ``RANKS`` with d1 <= 2, d2 <=
+    ``BWD_LANES``, r·d3 a multiple of 8 up to ``BWD_MAX_ROW3`` (a lane's
+    share of a core2 row's gradient sits in registers) and n2·n3 up to
+    ``BWD_MAX_KEYS``: its one sort is by (i2, i3), n2·n3 keys; its shared
+    memory holds ``BWD_SLOTS`` core0 rows a group and, where core0's
+    gradient has at most ``BWD_MAX_COPY`` floats, a block copy of it.  The
+    first
+    design's walks hold, a warp, the three slices, t and the largest row of
+    the three gradients as f32 (at most twice an item of the forward's
+    any-rank path, so every shape the forward takes fits), and g's row too
+    when a block of ``BWD_WALK_WARPS`` warps still fits; otherwise g is
+    read through L1.  The launcher refuses a shape whose first-design warp
+    does not fit (warps 0), whichever walk it takes."""
     row = max(d1 * rank, rank * d2 * rank, rank * d3)
     rest = 4 * (d1 * rank + rank * d2 * rank + rank * d3 + d1 * d2 * rank
                 + row)
-    staged = 8 * (rest + 4 * d1 * d2 * d3) <= MAX_SMEM
+    staged = BWD_WALK_WARPS * (rest + 4 * d1 * d2 * d3) <= MAX_SMEM
     per_warp = rest + (4 * d1 * d2 * d3 if staged else 0)
-    return staged, min(8, MAX_SMEM // per_warp)
+    warps = min(BWD_WALK_WARPS, MAX_SMEM // per_warp)
+    row3 = rank * d3
+    if rank in RANKS and d1 <= 2 and d2 <= BWD_LANES and \
+            row3 <= BWD_MAX_ROW3 and row3 % 8 == 0 and \
+            n2 * n3 <= BWD_MAX_KEYS:
+        copy = n1 * d1 * rank if n1 * d1 * rank <= BWD_MAX_COPY else 0
+        smem = 4 * (BWD_WARPS * 32 // BWD_LANES * BWD_SLOTS * 2 * rank + copy)
+        return TtBwdPlan(rank, smem, max(n1, n2, n3, n2 * n3), staged, warps)
+    return TtBwdPlan(0, warps * per_warp, max(n1, n2, n3), staged, warps)
+
+
+def bwd_split(n_items: int, resident: int) -> tuple:
+    """(blocks, groups, most places of a group) of the ranked walk over
+    ``n_items`` sorted places when the card holds ``resident`` of its
+    blocks at once (one an SM at full width): no more blocks than give each
+    group of ``BWD_LANES`` lanes a place, and group k takes the places
+    [k·n // groups, (k+1)·n // groups).  Mirrors ``launch_ranked`` and
+    ``tt_ranked_bwd_kernel`` in csrc/tt_lookup_bwd.cu."""
+    per_block = BWD_WARPS * 32 // BWD_LANES
+    blocks = min(resident, -(-n_items // per_block))
+    groups = blocks * per_block
+    return blocks, groups, -(-n_items // groups)
 
 
 def tt_lookup_cuda(core0: torch.Tensor, core1: torch.Tensor,
@@ -187,7 +242,8 @@ def tt_lookup_bwd_cuda(g: torch.Tensor, core0: torch.Tensor,
             b * f >= 2 ** 31:
         raise ValueError(f"global rows and B*F must stay below 2^31: "
                          f"factors {(n1, n2, n3)}, B*F = {b * f}")
-    if bwd_plan(d1, d2, d3, r)[1] < 1:
+    bp = bwd_plan(d1, d2, d3, r, n1, n2, n3)
+    if bp.warps < 1:
         raise ValueError(f"cores too wide for the backward's shared memory: "
                          f"dims {(d1, d2, d3)}, rank {r}")
     code = _build.dtype_code(g)
@@ -198,7 +254,7 @@ def tt_lookup_bwd_cuda(g: torch.Tensor, core0: torch.Tensor,
         [torch.zeros(c.shape, dtype=g.dtype, device=dev) for c in cores]
     if b == 0:
         return tuple(outs)
-    nbytes = _build.row_sort_bytes(max(n1, n2, n3), b * f)
+    nbytes = _build.row_sort_bytes(bp.keys, b * f)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     err = _build.library().tt_lookup_bwd_launch(
         g.data_ptr(), core0.data_ptr(), core1.data_ptr(), core2.data_ptr(),

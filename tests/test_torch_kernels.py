@@ -724,32 +724,305 @@ def test_backward_wrappers_refuse_cpu_tensors():
 def test_substrate_bwd_layouts_match_the_kernel_sources():
     """The scratch of the substrates' backward sorts and tt's walk plan,
     as the wrappers size them, are what csrc/row_sort.cuh and
-    csrc/tt_lookup_bwd.cu compute: a 4-byte count a key and an 8-byte
-    (item, key) pair an item, each 256-byte aligned; 8 warps a block of a
-    walk at most, fewer when a warp's f32 stage is large, g's row staged
-    only while 8 warps fit."""
+    csrc/tt_lookup_bwd.cu compute: a 4-byte count a key, a 4-byte sum a
+    4,096-key tile of the scan and an 8-byte (item, key) pair an item, each
+    256-byte aligned; the ranked walk's constants, its choice of shapes, its
+    (i2, i3) sort keys and its shared memory (8 core0 slots a group of 8
+    lanes, four groups a warp, eight warps, and a block copy of core0's
+    gradient up to 16,384 floats); the first design's walks, 8 warps a
+    block at most, fewer when a warp's f32 stage is large, g's row staged
+    only while 8 warps fit; and the QR walk's slots within static shared
+    memory."""
     import importlib
     from repro_torch.kernels import _build
     tt = importlib.import_module("repro_torch.kernels.tt_lookup")
     sort_src = (_build.CSRC / "row_sort.cuh").read_text()
     tt_src = (_build.CSRC / "tt_lookup_bwd.cu").read_text()
-    assert "rs_align(4 * (size_t)n_keys) + rs_align(8 * (size_t)n_items)" \
-        in sort_src
-    assert _build.row_sort_bytes(589, 65536 * 26) == 2560 + 13_631_488
-    assert _build.row_sort_bytes(1, 1) == 512
-    assert _const("kWalkWarps", tt_src) == 8
-    # full width: g's row (128), the slices (16, 512, 64), t (128) and the
-    # largest row (512): 1,360 floats a warp, eight warps a block
-    assert tt.bwd_plan(2, 8, 8, 8) == (True, 8)
-    assert tt.bwd_plan(1, 1, 1, 1) == (True, 8)
+    qr_src = (_build.CSRC / "qr_lookup_bwd.cu").read_text()
+    assert "return rs_align(4 * (size_t)n_keys) + rs_align(4 * " \
+        "(size_t)rs_tiles(n_keys)) + rs_align(8 * (size_t)n_items);" in \
+        " ".join(sort_src.split())
+    assert _const("kRsScanThreads", sort_src) * 4 == _build.SORT_TILE == 4096
+    assert "constexpr int kRsTile = 4 * kRsScanThreads;" in sort_src
+    # 589 keys: one tile; tt's (i2, i3) keys at full width: 85 tiles
+    assert _build.row_sort_bytes(589, 65536 * 26) == \
+        2560 + 256 + 13_631_488
+    assert _build.row_sort_bytes(589 * 589, 65536 * 26) == \
+        1_387_776 + 512 + 13_631_488
+    assert _build.row_sort_bytes(1, 1) == 768
+    assert _const("kWalkWarps", tt_src) == tt.BWD_WALK_WARPS == 8
+    assert _const("kTbWarps", tt_src) == tt.BWD_WARPS
+    assert _const("kTbLanes", tt_src) == tt.BWD_LANES == 8
+    assert _const("kTbSlots", tt_src) == tt.BWD_SLOTS <= tt.BWD_LANES
+    assert _const("kTbMaxCopy", tt_src) == tt.BWD_MAX_COPY
+    assert _const("kTbMaxRow3", tt_src) == tt.BWD_MAX_ROW3 == 64
+    assert "constexpr long long kTbMaxKeys = 1LL << 24;" in tt_src
+    assert tt.BWD_MAX_KEYS == 1 << 24
+    assert "constexpr int kTbRanks[] = {4, 8};" in tt_src and RANKS == (4, 8)
+    # full width: the ranked walk, sorted by (i2, i3), with 32 groups of 8
+    # slots of 16 floats and core0's 589 x 16 floats in a block
+    assert tt.bwd_plan(2, 8, 8, 8, 589, 589, 589) == \
+        (8, 4 * (32 * 8 * 16 + 589 * 16), 589 * 589, True, 8)
+    # TT_SHAPES of chip_smoke.py: ranks 4 and 8 on the ranked walk, 3 not
+    assert tt.bwd_plan(2, 3, 4, 4, 589, 589, 589).instance == 4
+    assert tt.bwd_plan(2, 3, 3, 8, 589, 589, 589).instance == 8
+    assert tt.bwd_plan(1, 4, 4, 8, 589, 589, 589).instance == 8
+    assert tt.bwd_plan(2, 3, 4, 3, 589, 589, 589).instance == 0
+    # core0 too large for a block copy: slots only
+    assert tt.bwd_plan(2, 8, 8, 8, 2000, 589, 589).smem == 4 * 32 * 8 * 16
+    # d1 > 2, d2 > 8, r * d3 past 64 or not a multiple of 8, n2 * n3 past
+    # 2^24: the first design, sorted by each core's rows
+    for shape in ((3, 3, 3, 8), (2, 9, 2, 8), (2, 2, 16, 8), (2, 2, 3, 4)):
+        plan_ = tt.bwd_plan(*shape, 589, 589, 589)
+        assert plan_.instance == 0 and plan_.keys == 589, shape
+    assert tt.bwd_plan(2, 8, 8, 8, 4, 5000, 5000).instance == 0
+    # first design, full width: g's row (128), the slices (16, 512, 64), t
+    # (128) and the largest row (512): 1,360 floats a warp, eight warps
+    assert tt.bwd_plan(2, 8, 8, 3)[3:] == (True, 8)
+    assert tt.bwd_plan(1, 1, 1, 1)[3:] == (True, 8)
     # 64,000-wide rows: g is read through L1, and 8 warps still fit
-    assert tt.bwd_plan(8, 8, 1000, 1) == (False, 8)
+    assert tt.bwd_plan(8, 8, 1000, 1)[3:] == (False, 8)
     # the backward takes every shape the forward takes, its any-rank path's
     # widest items and dims far past a warp's shared memory included
     for d1, d2, d3, r in itertools.product((1, 2, 8, 64), (1, 8, 64),
                                            (1, 3, 8, 700), (1, 3, 8, 16)):
         if tt.plan(d1, d2, d3, r, 4, aligned=False)[1] <= _build.MAX_SMEM:
-            assert tt.bwd_plan(d1, d2, d3, r)[1] >= 1, (d1, d2, d3, r)
+            assert tt.bwd_plan(d1, d2, d3, r).warps >= 1, (d1, d2, d3, r)
+    # the QR walk: a power-of-two slot count, its slots and dR stage of
+    # four elements a lane within a block's 48 KB of static shared memory
+    slots = _const("kQSlots", qr_src)
+    assert slots & (slots - 1) == 0
+    assert _const("kWalkWarps", qr_src) * (slots + 1) * 32 * 4 * 4 <= 48 * 1024
+    assert _const("kRsChunk", sort_src) == 128
+
+
+def test_tt_bwd_split_fills_the_card():
+    """The ranked walk's grid is the blocks the card holds at once (one an
+    SM at full width), no more than give each group of 8 lanes a place, and
+    its groups share the sorted places by proportion: at B = 512 every one
+    of the 132 SMs gets a block and every group at least one place; every
+    place belongs to exactly one group."""
+    import importlib
+    tt = importlib.import_module("repro_torch.kernels.tt_lookup")
+    n = 512 * 26
+    blocks, groups, most = tt.bwd_split(n, 132)
+    assert (blocks, groups, most) == (132, 132 * 32, 4)
+    assert n // groups >= 1
+    # the first design's walk: 128 places a warp, 8 warps a block
+    assert -(-n // (128 * 8)) == 13
+    assert tt.bwd_split(65536 * 26, 132) == (132, 4224, 404)
+    assert tt.bwd_split(26, 132) == (1, 32, 1)
+    for n_items, resident in ((13_312, 132), (1_703_936, 132), (26, 132),
+                              (1000, 7), (5, 1)):
+        blocks, groups, most = tt.bwd_split(n_items, resident)
+        cover = [0] * n_items
+        for k in range(groups):
+            lo, hi = k * n_items // groups, (k + 1) * n_items // groups
+            assert hi - lo <= most
+            for t in range(lo, hi):
+                cover[t] += 1
+        assert cover == [1] * n_items
+
+
+def _tt_walk_mirror(g, cores, idx, offsets, factors, groups, seed=0):
+    """The ranked walk of csrc/tt_lookup_bwd.cu in Python: the items sorted
+    by (i2, i3) (in an arbitrary order within a key), ``groups`` groups of
+    32 a block taking the places by proportion; a group sums dc2 while i2
+    repeats and dc3 while i3 repeats, sending each on when its row
+    changes; dc1 while i1 repeats, then parked in the group's slot i1 %
+    kTbSlots (a slot holding another row sends that row into the block's
+    copy of core0's gradient first), the slots and then the block copy
+    sent on at the end.  Returns the three gradients and, per core, the
+    most gradient atomics one row received."""
+    from repro_torch.kernels import _build
+    slots_n = _const("kTbSlots", (_build.CSRC / "tt_lookup_bwd.cu")
+                     .read_text())
+    c0, c1, c2 = (c.double() for c in cores)
+    g = g.double().reshape(-1, c0.shape[1], c1.shape[2], c2.shape[2])
+    i1, i2, i3 = (i.reshape(-1).long()
+                  for i in tref.tt_indices(idx, offsets, factors))
+    n3 = factors[2]
+    gen = torch.Generator().manual_seed(seed)
+    tie = torch.rand(len(i1), generator=gen, dtype=torch.float64)
+    order = sorted(range(len(i1)),
+                   key=lambda t: (int(i2[t]) * n3 + int(i3[t]), tie[t]))
+    ws = [torch.zeros_like(c) for c in (c0, c1, c2)]
+    hits = [torch.zeros(c.shape[0], dtype=torch.int64) for c in (c0, c1, c2)]
+    n = len(order)
+    copy = None
+    for gid in range(groups):
+        if gid % 32 == 0:
+            if copy is not None:
+                ws[0] += copy
+                hits[0] += (copy != 0).flatten(1).any(1)
+            copy = torch.zeros_like(c0)
+        run = {0: None, 1: None, 2: None}
+        acc = {0: 0, 1: 0, 2: 0}
+        slots = [None] * slots_n
+
+        def send(k, row, val):
+            ws[k][row] += val
+            hits[k][row] += 1
+
+        def park(row, val):
+            s = row % slots_n
+            if slots[s] is not None and slots[s][0] == row:
+                slots[s][1] += val
+                return
+            if slots[s] is not None:
+                copy[slots[s][0]] += slots[s][1]
+            slots[s] = [row, val]
+
+        for t in order[gid * n // groups:(gid + 1) * n // groups]:
+            a, b, c = int(i1[t]), int(i2[t]), int(i3[t])
+            x1, x2, x3 = c0[a], c1[b], c2[c]
+            tt_ = torch.einsum("ap,pbq->abq", x1, x2)
+            dt = torch.einsum("abc,qc->abq", g[t], x3)
+            parts = {0: torch.einsum("abq,pbq->ap", dt, x2),
+                     1: torch.einsum("ap,abq->pbq", x1, dt),
+                     2: torch.einsum("abq,abc->qc", tt_, g[t])}
+            for k, row in ((0, a), (1, b), (2, c)):
+                if run[k] != row:
+                    if run[k] is not None:
+                        (park if k == 0 else
+                         lambda r, v, k=k: send(k, r, v))(run[k], acc[k])
+                    run[k], acc[k] = row, 0
+                acc[k] = acc[k] + parts[k]
+        for k in (1, 2):
+            if run[k] is not None:
+                send(k, run[k], acc[k])
+        if run[0] is not None:
+            park(run[0], acc[0])
+        for slot in slots:
+            if slot is not None:
+                copy[slot[0]] += slot[1]
+    ws[0] += copy
+    hits[0] += (copy != 0).flatten(1).any(1)
+    return ws, [int(h.max()) for h in hits]
+
+
+@pytest.mark.parametrize("dims,rank,groups", [
+    ((2, 3, 4), 4, 32), ((2, 2, 2), 8, 64), ((1, 3, 8), 8, 96)])
+def test_tt_bwd_walk_mirror_matches_plain_version(dims, rank, groups):
+    """A Python mirror of the ranked walk (one sort by (i2, i3), dc2 summed
+    per i2 run, dc3 per i3 run, dc1 per i1 run parked in a group's slots
+    and a block's copy of core0), summing in f64, equals tt_lookup_bwd_ref
+    (f32) on small cores whose ids repeat (a zipf-like head and one field
+    at a single id), within the kernel's bound 1e-5·A + 1e-7 (A the plain
+    version on |g| and |cores|); and no core0 row receives more than one
+    atomic a block, however many items it takes."""
+    factors = (4, 5, 3)
+    d1, d2, d3 = dims
+    rng = np.random.default_rng(11)
+    offsets = (0, 17, 41)
+    vocab = factors[0] * factors[1] * factors[2] - offsets[-1]
+    ids = np.minimum(rng.zipf(1.3, size=(40, 3)) - 1, vocab - 1)
+    ids[:, 1] = 5
+    idx = torch.from_numpy(ids.astype(np.int32))
+    cores = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in ((factors[0], d1, rank), (factors[1], rank, d2, rank),
+                       (factors[2], rank, d3))]
+    g = torch.from_numpy(rng.standard_normal((40, 3, d1 * d2 * d3))
+                         .astype(np.float32))
+    got, most = _tt_walk_mirror(g, cores, idx, offsets, factors, groups)
+    want = tref.tt_lookup_bwd_ref(g, *cores, idx, offsets, factors)
+    mag = tref.tt_lookup_bwd_ref(g.abs(), *(c.abs() for c in cores), idx,
+                                 offsets, factors)
+    for x, y, a in zip(got, want, mag):
+        assert bool(((x - y.double()).abs() <= 1e-5 * a + 1e-7).all())
+    assert most[0] <= groups // 32
+
+
+def _qr_walk_mirror(g, q_table, r_table, idx, q_off, r_off, m, chunk,
+                    seed=0):
+    """The walk of csrc/qr_lookup_bwd.cu in Python: the items sorted by R
+    row (in an arbitrary order within a key) and taken ``chunk`` places at
+    a time; a chunk sums dR while r repeats and dQ while q repeats, parking
+    a finished q's sum in slot q % kQSlots (a slot holding another row
+    sends it on first), sending dR on when r changes and every slot at the
+    end.  Returns (dQ, dR) and the most atomics one Q row received."""
+    from repro_torch.kernels import _build
+    slots_n = _const("kQSlots", (_build.CSRC / "qr_lookup_bwd.cu")
+                     .read_text())
+    qi, ri = (i.reshape(-1).long()
+              for i in tref.qr_indices(idx, q_off, r_off, m))
+    g = g.double().reshape(-1, q_table.shape[1])
+    qt, rt = q_table.double(), r_table.double()
+    gen = torch.Generator().manual_seed(seed)
+    tie = torch.rand(len(qi), generator=gen, dtype=torch.float64)
+    order = sorted(range(len(qi)), key=lambda t: (int(ri[t]), tie[t]))
+    dq, dr = torch.zeros_like(qt), torch.zeros_like(rt)
+    q_hits = torch.zeros(len(qt), dtype=torch.int64)
+    for lo in range(0, len(order), chunk):
+        slots = [None] * slots_n
+        rcur = qcur = None
+        racc = qacc = 0
+
+        def park():
+            s = qcur % slots_n
+            if slots[s] is not None and slots[s][0] == qcur:
+                slots[s][1] += qacc
+                return
+            if slots[s] is not None:
+                dq[slots[s][0]] += slots[s][1]
+                q_hits[slots[s][0]] += 1
+            slots[s] = [qcur, qacc]
+
+        for t in order[lo:lo + chunk]:
+            r, q = int(ri[t]), int(qi[t])
+            if r != rcur:
+                if rcur is not None:
+                    dr[rcur] += racc
+                rcur, racc = r, 0
+            racc = racc + g[t] * qt[q]
+            if q != qcur:
+                if qcur is not None:
+                    park()
+                qcur, qacc = q, 0
+            qacc = qacc + g[t] * rt[r]
+        dr[rcur] += racc
+        park()
+        for slot in slots:
+            if slot is not None:
+                dq[slot[0]] += slot[1]
+                q_hits[slot[0]] += 1
+    return dq, dr, int(q_hits.max())
+
+
+@pytest.mark.parametrize("m,chunk", [(1, 32), (3, 32), (4, 128), (64, 32)])
+def test_qr_bwd_walk_mirror_matches_plain_version(m, chunk):
+    """A Python mirror of the QR walk (one sort by R row, dR summed per R
+    run, dQ per q run parked in a direct-mapped table of kQSlots rows with
+    eviction) equals qr_lookup_bwd_ref on small tables whose ids repeat:
+    m = 1 (one R row a field), m above every vocab (one Q row a field), a
+    multi-Q-row field at one id; summing in f64, within the kernel's bound
+    1e-5·A + 1e-7 of the plain version (f32; A on |g|, |Q|, |R|).  A
+    single-Q-row field's row receives at most ceil(items / chunk) + 1
+    atomics."""
+    vocabs = (50, 9, 40, 30)
+    q_rows, q_off, r_off = qr_layout(vocabs, m)
+    rng = np.random.default_rng(5)
+    b = 300
+    ids = np.stack([np.minimum(rng.zipf(1.2, size=b) - 1, v - 1)
+                    for v in vocabs], axis=1)
+    ids[:, 3] = 7
+    idx = torch.from_numpy(ids.astype(np.int32))
+    dim = 6
+    qt = torch.from_numpy(rng.standard_normal((sum(q_rows), dim))
+                          .astype(np.float32))
+    rt = torch.from_numpy(rng.standard_normal((len(vocabs) * m, dim))
+                          .astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((b, len(vocabs), dim))
+                         .astype(np.float32))
+    dq, dr, most = _qr_walk_mirror(g, qt, rt, idx, tuple(q_off),
+                                   tuple(r_off), m, chunk)
+    args = (idx, tuple(q_off), tuple(r_off), m)
+    want = tref.qr_lookup_bwd_ref(g, qt, rt, *args)
+    mag = tref.qr_lookup_bwd_ref(g.abs(), qt.abs(), rt.abs(), *args)
+    for x, y, a in zip((dq, dr), want, mag):
+        assert bool(((x - y.double()).abs() <= 1e-5 * a + 1e-7).all())
+    if m > max(vocabs):   # every field one Q row: chunks bound its atomics
+        assert most <= -(-b * len(vocabs) // chunk) + 1
 
 
 def _const(name: str, text: str) -> int:

@@ -4,11 +4,18 @@ receives, on one card.
     python3 tools/atomic_chains.py [B]
 
 Builds a counting copy of ``src/repro_torch/kernels/csrc`` under
-``build/atomic_chains/``: every atomic of a backward into a gradient (the
+``build/atomic_chains/``: every global atomic of a backward into a
+gradient adds 1 instead of its value, under the same condition -- the
 scatter's ``atomicAdd(ws + slot, val)`` in robe_scatter.cuh, which
-robe_lookup_bwd and qrobe_lookup_bwd share, the walks' ``atomicAdd(ws +
-..., acc)`` in qr_lookup_bwd.cu and ``atomicAdd(dst + e, sa[e])`` in
-tt_lookup_bwd.cu) adds 1 instead of its value, under the same condition.
+robe_lookup_bwd and qrobe_lookup_bwd share; the walk's ``atomicAdd(dst +
+x, v)`` in qr_lookup_bwd.cu, which sends both its dR and its dQ rows; in
+tt_lookup_bwd.cu the first design's ``atomicAdd(dst + e, sa[e])`` and
+the ranked walk's four (its core1 run's ``v``, its core2 sums
+``acc3[s]``, its core0 slots' ``v`` where a block has no copy of core0's
+gradient, and the flush of that copy, ``atomicAdd(dst + e, v)``).  Sums
+a kernel keeps in registers or shared memory before these, the adds into
+the block's copy (``atomicAdd(sm0 + ...)``) among them, are not atomics
+of a gradient and are not counted.
 Each f32 gradient the wrappers return then holds, element by element, the
 number of atomics it received.  Runs robe_lookup_bwd, qrobe_lookup_bwd
 (delta's gradient, the scatter's workspace), qr_lookup_bwd and
@@ -31,8 +38,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "atomic_chains"
 #: file of csrc/ -> the atomics into a gradient it holds
-SITES = {"robe_scatter.cuh": 1, "qr_lookup_bwd.cu": 2, "tt_lookup_bwd.cu": 1}
-ATOMIC = re.compile(r"atomicAdd\(((?:ws|dst) \+ [^;]*?), ([\w\[\]]+)\);")
+SITES = {"robe_scatter.cuh": 1, "qr_lookup_bwd.cu": 1, "tt_lookup_bwd.cu": 5}
+#: a global gradient atomic: into ws or dst
+ATOMIC = re.compile(r"atomicAdd\(((?:ws|dst)\w* \+ [^;]*?), ([\w\[\]]+)\);")
 
 
 def counting_copy(csrc: Path, out: Path) -> Path:

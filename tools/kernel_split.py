@@ -1,8 +1,9 @@
 """Split the time of the port's redesigned kernels into their parts.
 
-    python3 tools/kernel_split.py [--only di,sf,tt,rl,qb,db,rb] [CSRC_DIR ...]
+    python3 tools/kernel_split.py [--only di,sf,tt,rl,qb,db,rb,tb,qd]
+                                  [CSRC_DIR ...]
 
-Builds variants of seven kernels from the sources in each CSRC_DIR (by
+Builds variants of nine kernels from the sources in each CSRC_DIR (by
 default ``src/repro_torch/kernels/csrc``; an older tree works too, e.g.
 from ``git archive <commit> src/repro_torch/kernels/csrc | tar -x -C
 build/old``), each as it is and with one part taken out:
@@ -29,7 +30,18 @@ build/old``), each as it is and with one part taken out:
   and that of contention show apart; where the launcher buckets the
   pairs by band of M first, also the bucketing passes alone.  Each
   ``robe_lookup_bwd`` call is timed with the zeroing of its |M| f32
-  workspace, as the wrapper does it, and the zeroing alone beside it.
+  workspace, as the wrapper does it, and the zeroing alone beside it;
+- ``tt_lookup_bwd``: the contractions skipped (the first design's per-item
+  t / dt and accumulator loops replaced by one add a row element of the
+  staged slices; the ranked walk's three R x R contractions -- t = c1.c2,
+  dc1's dt.c2^T and dc2's c1^T.dt -- replaced by adds, its loop over g's
+  columns with dt, dc3 and their shuffles kept), so the loads and the
+  atomics stay live; the global gradient atomics skipped (kept live by a
+  store that never fires); the sort passes alone (the walks' launches
+  dropped);
+- ``qr_lookup_bwd``: the walks' atomics skipped (the same store that never
+  fires); the sort passes alone.  Each call of the two with the zeroing of
+  its f32 workspaces, as the wrappers do.
 
 Each variant is compiled with nvcc into its own library under
 ``build/kernel_split/`` (all at once) and timed at B=512 and B=262144 on
@@ -38,11 +50,14 @@ codes with one f32 scale per 256 slots; TT factors (589, 589, 589), dims
 (2, 8, 8), rank 8) with CUDA events (median
 of 21 runs of 8 back-to-back launches), beside ``torch.bmm`` on the same
 [B, 27, 128] input; the two backwards at B=512 and B=65536 (the training
-batch), ``dot_interaction_bwd`` beside ``torch.bmm(sym, feats)``.
+batch), ``dot_interaction_bwd`` beside ``torch.bmm(sym, feats)``; the
+substrates' two backwards at B=512 and B=65536 on the full-width tables
+(QR: m = 8,192, 24,941 Q rows and 212,992 R rows).
 Several CSRC_DIRs are timed in one process, in turns; ``--only`` keeps
 the named kernels (di = dot_interaction, sf = serve_fused, tt =
 tt_lookup, rl = robe_lookup, qb = qrobe_lookup, db =
-dot_interaction_bwd, rb = robe_lookup_bwd).
+dot_interaction_bwd, rb = robe_lookup_bwd, tb = tt_lookup_bwd, qd =
+qr_lookup_bwd).
 Prints one JSON object, the card's name and power limit included.  The
 variants are made at run time and never kept in the repository.  Needs
 one CUDA card and nvcc.
@@ -170,6 +185,39 @@ RB_PARTS = {
              r"0x7fc00001u) ws[s_] = \2; }",
     "l2win": r"atomicAdd(ws + ((\1) & 0x7FFFFFu), \2);",
 }
+# a gradient atomic kept live by a store that never fires
+NEVER = r"{ if (__float_as_uint(\2) == 0x7fc00001u) *(\1) = \2; }"
+# tt_lookup_bwd: the first design (three walks, per-item contractions in
+# shared memory), then the ranked walk (three R x R contractions in
+# registers, by helper)
+TB_PARTS = {
+    "nocontract": (
+        [(r"      // st\[\(a\*d2 \+ b\)\*r \+ q'\].*?        sa\[e\] = "
+          r"acc;\n      \}\n",
+          "      __syncwarp();\n"
+          "      for (int e = lane; e < row; e += 32)\n"
+          "        sa[e] += s1[e % n1c] + s2[e % n2c] + s3[e % n3c] +\n"
+          "                 (kG ? sg[e % dim] : 0.f);\n", 1)],
+        [(r"tb_chain<R>\(c1a, c1b, c2r, t0, t1\);",
+          "for (int q = 0; q < R; ++q) { t0[q] = c1a[q] + c2r[q][q]; "
+          "t1[q] = c1b[q]; }", 1),
+         (r"tb_dc1<R>\(dt0, dt1, c2r, d1v\);",
+          "for (int x = 0; x < R; ++x) { d1v[x] = dt0[x]; "
+          "d1v[R + x] = dt1[x]; }", 1),
+         (r"tb_dc2<R>\(c1a, c1b, dt0, dt1, dc2\);",
+          "for (int a = 0; a < R; ++a) for (int q = 0; q < R; ++q) "
+          "dc2[a][q] += dt0[q] + c1a[a];", 1)]),
+    "noatomic": [(r"atomicAdd\((dst \+ [^;]*?), ([\w\[\]]+)\);", NEVER,
+                  None)],
+    "sortonly": [(r"kernel<<<[^;]*;", ";", None)],
+}
+# qr_lookup_bwd: the walks' gradient atomics (into ws in the first design,
+# dst in the one walk), or their launches
+QD_PARTS = {
+    "noatomic": [(r"atomicAdd\(((?:ws|dst) \+ [^;]*?), (\w+)\);", NEVER,
+                  None)],
+    "sortonly": [(r"qr_walk_kernel<[^>]*><<<[^;]*;", ";", 1)],
+}
 #: variant name -> (source, launcher, {generation: transforms} or flags)
 VARIANTS = {
     "di": ("dot_interaction.cu", {}),
@@ -197,11 +245,21 @@ VARIANTS = {
     "rb_nored": ("robe_lookup_bwd.cu", {"part": "nored"}),
     "rb_l2win": ("robe_lookup_bwd.cu", {"part": "l2win"}),
     "rb_bucketonly": ("robe_lookup_bwd.cu", {"part": "bucketonly"}),
+    "tb": ("tt_lookup_bwd.cu", {}),
+    "tb_nocontract": ("tt_lookup_bwd.cu", {"part": "nocontract"}),
+    "tb_noatomic": ("tt_lookup_bwd.cu", {"part": "noatomic"}),
+    "tb_sortonly": ("tt_lookup_bwd.cu", {"part": "sortonly"}),
+    "qd": ("qr_lookup_bwd.cu", {}),
+    "qd_noatomic": ("qr_lookup_bwd.cu", {"part": "noatomic"}),
+    "qd_sortonly": ("qr_lookup_bwd.cu", {"part": "sortonly"}),
 }
+#: the kernels timed by time_backwards and time_sub_backwards
+BACKWARDS = ("db", "rb", "tb", "qd")
 LAUNCHERS = {"di": "dot_interaction_launch", "sf": "serve_fused_launch",
              "tt": "tt_lookup_launch", "rl": "robe_lookup_launch",
              "qb": "qrobe_lookup_launch", "db": "dot_interaction_bwd_launch",
-             "rb": "robe_lookup_bwd_launch"}
+             "rb": "robe_lookup_bwd_launch", "tb": "tt_lookup_bwd_launch",
+             "qd": "qr_lookup_bwd_launch"}
 QROBE_GROUP_LOG2 = 8
 
 
@@ -241,6 +299,13 @@ def variant(csrc: Path, tag: str, name: str, src: str, nogram=False,
     if part and src == "dot_interaction_bwd.cu":
         pat, repl, _ = DB_PARTS[part][int("bwd_contract" in text)]
         text = subst(text, [(pat, repl, 1)], name)
+    elif part and src == "tt_lookup_bwd.cu":
+        rules = TB_PARTS[part]
+        if part == "nocontract":
+            rules = rules[int("tb_chain<R>" in text)]
+        text = subst(text, rules, name)
+    elif part and src == "qr_lookup_bwd.cu":
+        text = subst(text, QD_PARTS[part], name)
     elif part and src == "robe_lookup_bwd.cu":
         if part == "bucketonly":
             # the band-ordered design's scatter launch dropped
@@ -400,6 +465,75 @@ def time_backwards(trees, res, spec, tids, gen, dev, s) -> None:
         torch.cuda.empty_cache()
 
 
+def time_sub_backwards(trees, res, gen, dev, s) -> None:
+    """The variants of tt_lookup_bwd and qr_lookup_bwd at B=512 and the
+    training batch B=65536, on the first zipf batches of the CTR stream and
+    the full-width tables, each call with the zeroing of its f32
+    workspaces (tt's three cores, QR's two tables) as the wrappers do."""
+    from repro_torch.nn.embedding_backends.hashed import (default_buckets,
+                                                          qr_layout)
+    m = default_buckets(tuple(CRITEO_TB_VOCABS))
+    q_rows, q_off, r_off = qr_layout(tuple(CRITEO_TB_VOCABS), m)
+    n_q, n_r = sum(q_rows), F * m
+    qt = torch.randn((n_q, D), generator=gen, device=dev)
+    rt = torch.randn((n_r, D), generator=gen, device=dev)
+    ws_q, ws_r = torch.empty_like(qt), torch.empty_like(rt)
+    qo = _build.field_args(tuple(int(o) for o in q_off))
+    ro = _build.field_args(tuple(int(o) for o in r_off))
+    (n1, n2, n3), (d1, d2, d3), r = TT_FACTORS, TT_DIMS, TT_RANK
+    cores = [0.3 * torch.randn(shape, generator=gen, device=dev) for shape
+             in ((n1, d1, r), (n2, r, d2, r), (n3, r, d3))]
+    tws = [torch.empty_like(c) for c in cores]
+    tt_off = [0]
+    for v in CRITEO_TB_VOCABS[:-1]:
+        tt_off.append(tt_off[-1] + v)
+    off_arr = _build.field_args(tuple(tt_off))
+    for b, n_in in ((512, 8), (65536, 2)):
+        stream = CtrStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
+                                         n_dense=13, batch_size=b, seed=0))
+        rows = [torch.from_numpy(stream.batch_at(100 + k)["sparse"]).to(dev)
+                for k in range(n_in)]
+        gs = [torch.randn((b, F, D), generator=gen, device=dev)
+              for _ in range(n_in)]
+        # the QR sort's keys, and tt's: (i2, i3) in the ranked walk
+        nbytes = _build.row_sort_bytes(max(n_q, n_r, n2 * n3), b * F)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+        def qd_call(x, g, fn):
+            ws_q.zero_()
+            ws_r.zero_()
+            err = fn(g.data_ptr(), qt.data_ptr(), rt.data_ptr(),
+                     x.data_ptr(), ws_q.data_ptr(), ws_r.data_ptr(),
+                     ws_q.data_ptr(), ws_r.data_ptr(), scratch.data_ptr(),
+                     nbytes, b * F, 0, F * D, D, qo, ro, F, m, D, n_q, n_r,
+                     s)
+            assert err == 0, err
+
+        def tb_call(x, g, fn):
+            for w in tws:
+                w.zero_()
+            err = fn(g.data_ptr(), *(c.data_ptr() for c in cores),
+                     x.data_ptr(), *(w.data_ptr() for w in tws),
+                     *(w.data_ptr() for w in tws), scratch.data_ptr(),
+                     nbytes, b * F, 0, F * D, D, off_arr, F, n1, n2, n3, d1,
+                     d2, d3, r, s)
+            assert err == 0, err
+
+        res[f"zero_qr_ws_{b}"] = device_ms(
+            lambda: (ws_q.zero_(), ws_r.zero_()), [()])
+        for k in VARIANTS:
+            if not k.startswith(("tb", "qd")):
+                continue
+            call = tb_call if k.startswith("tb") else qd_call
+            for tag, (_, _, fns) in trees.items():
+                if k in fns:
+                    res[f"{tag}_{k}_{b}"] = device_ms(
+                        lambda x, g, fn=fns[k][0], call=call: call(x, g, fn),
+                        list(zip(rows, gs)))
+        del rows, gs, scratch
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA card", file=sys.stderr)
@@ -440,7 +574,8 @@ def main() -> int:
                                       generator=gen, device=dev)
     delta = torch.zeros(SIZE, device=dev)
     off_arr = _build.field_args(tuple(tt_off))
-    for b, n_in in ((512, 8), (262144, 1)):
+    forwards = not only or bool(only - set(BACKWARDS))
+    for b, n_in in ((512, 8), (262144, 1)) if forwards else ():
         stream = CtrStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
                                          n_dense=13, batch_size=b, seed=0))
         rows = [torch.from_numpy(stream.batch_at(100 + k)["sparse"]).to(dev)
@@ -452,7 +587,7 @@ def main() -> int:
         out = torch.empty((b, (F + 1) * F // 2), device=dev)
         emb = torch.empty((b, F, D), device=dev)
         for k in VARIANTS:
-            if k.startswith(("db", "rb")):    # timed by time_backwards
+            if k.startswith(BACKWARDS):   # timed by the two below
                 continue
             for tag, (csrc, old, fns) in trees.items():
                 if k not in fns:
@@ -512,6 +647,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     if not only or only & {"db", "rb"}:
         time_backwards(trees, res, spec, tids, gen, dev, s)
+    if not only or only & {"tb", "qd"}:
+        time_sub_backwards(trees, res, gen, dev, s)
     print(json.dumps(res))
     return 0
 
