@@ -41,8 +41,11 @@ non-zero on failure:
    over, and on the quickstart's 18,400-slot array (d = 16, Z = 32) under
    a batch of 1,024 of its stream; ``qrobe_lookup_bwd`` (the scales' and
    delta's gradients) at every ``ROBE_REGIMES`` (d, Z) and B in 1, 509,
-   512, on the zipf batch, on wrap rows and on an array whose last scale
-   group (5 slots) is shorter than Z; ``qr_lookup_bwd`` at B in 1, 2,
+   512, on the zipf batch, on it with one field at a single row, on 65,536
+   samples of all-distinct rows, on wrap rows, on rows whose line of slots
+   straddles a scale group's edge, on an array whose last scale group (5
+   slots) is shorter than Z, and with g at the concat's strides;
+   ``qr_lookup_bwd`` at B in 1, 2,
    509, 512, on the zipf batch (13 fields of a single quotient row) and on
    it with a multi-Q-row field at one id, and on small tables at m = 1 and
    at m above every vocab, g contiguous and at the concat's strides;
@@ -340,6 +343,29 @@ def wrap_rows(gen, spec, dev, b: int = 509, chunk: int = 8192,
     return rows.contiguous()
 
 
+def group_edge_rows(gen, spec, dev, b: int = 509,
+                    chunk: int = 8192) -> torch.Tensor:
+    """[b, F] rows, each (row, field) one whose d=128 elements reach the
+    last slot of a scale group and go on to the next group's first slot
+    inside one ROBE block (so a line of the qrobe backward's flush sums two
+    groups), drawn from random rows.  Fails if too few are found."""
+    tids = torch.arange(F, device=dev)[None, :]
+    found = [[] for _ in range(F)]
+    for _ in range(64):
+        cand = random_rows(gen, (chunk, F), dev)
+        s = robe_slots(spec, tids, cand, D)
+        at = ((s[..., 1:] == s[..., :-1] + 1)
+              & (s[..., 1:] % (1 << GROUP_LOG2) == 0)).any(-1)
+        for f in range(F):
+            found[f].append(cand[at[:, f], f])
+        if min(sum(x.numel() for x in c) for c in found) >= b:
+            break
+    cols = [torch.cat(c)[:b] for c in found]
+    require(min(c.numel() for c in cols) == b,
+            "too few rows straddle a scale group's edge")
+    return torch.stack(cols, 1).contiguous()
+
+
 def max_err(got, want) -> float:
     if got.numel() == 0:
         return 0.0
@@ -600,7 +626,9 @@ def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
     # qrobe_lookup_bwd: every regime of the block hash at B = 1, 509, 512;
     # the zipf training batch; rows that cross the wrap at |M| inside the
     # partial last scale group; an array whose last group (5 slots) is
-    # shorter than Z
+    # shorter than Z; at B = 65,536 one field at a single row (one band's
+    # run over many chunks) and all-distinct rows; rows whose line of
+    # slots straddles a scale group's edge; g at the concat's strides
     qp = subs.params("qrobe")["embedding"]
     qspec = subs.recsys_config("qrobe").embedding_spec().robe
     short = dataclasses.replace(qspec, size=(1 << 20) + 5)
@@ -620,9 +648,26 @@ def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
             (wrap_rows(gen, short, dev), dataclasses.replace(
                 short, use_sign=sg), D, short_codes,
              f"|M| = {short.size}, wrap rows")]
+    chain = zipf.clone()
+    chain[:, 5] = 12345
+    distinct = (torch.arange(B_TRAIN * F, device=dev, dtype=torch.int32)
+                .view(F, B_TRAIN).t().contiguous())
+    edge = group_edge_rows(gen, qspec, dev)
+    for sg in (False, True):
+        sp = dataclasses.replace(qspec, use_sign=sg)
+        cases += [(chain, sp, D, qp["codes"],
+                   f"one row in field 5 B={B_TRAIN}"),
+                  (distinct, sp, D, qp["codes"],
+                   f"distinct rows B={B_TRAIN}"),
+                  (edge, sp, D, qp["codes"], "scale-group-edge rows"),
+                  (zipf, sp, D, qp["codes"],
+                   f"zipf B={B_TRAIN}, strided g"),
+                  (edge, sp, D, qp["codes"],
+                   "scale-group-edge rows, strided g")]
     for (idx, sp, dim, codes, what), dt in itertools.product(cases, dtypes):
-        g = torch.randn(tuple(idx.shape) + (dim,), generator=gen,
+        g = torch.randn((idx.shape[0], idx.shape[1] + 1, dim), generator=gen,
                         device=dev).to(dt)
+        g = g[:, 1:] if what.endswith("strided g") else g[:, 1:].contiguous()
         gs, gd = qrobe_lookup_bwd_cuda(g, codes, idx, tids, dim, sp,
                                        GROUP_LOG2)
         ws, wd = qrobe_lookup_bwd_ref(g, codes, idx, tids, dim, sp,
@@ -633,7 +678,8 @@ def check_substrate_backwards(gen, spec, subs, dev, rows, robe_rows,
         tag = f"{what} sign={sp.use_sign} {dt}"
         held("qrobe_lookup_bwd", gs, ws, a_s, f"scale grad {tag}")
         held("qrobe_lookup_bwd", gd, wd, a_d, f"delta grad {tag}")
-    del cases, short_codes
+        del g, gs, gd, ws, wd, a_s, a_d
+    del cases, short_codes, chain, distinct, edge
     torch.cuda.synchronize()
 
     # qr_lookup_bwd: the full-width tables at B = 1, 2, 509, 512, on the

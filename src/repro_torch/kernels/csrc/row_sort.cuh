@@ -224,6 +224,81 @@ static inline int rs_sort(const Key& key, int n_items, int batch,
   return (int)cudaGetLastError();
 }
 
+// Sorting (item, segment) pairs (qrobe_lookup_bwd.cu): an item spans up to
+// n_seg segments, each with a key of its own.  The same walk, count, scan
+// and place as above, a segment j at a time; each pair is written as the
+// 4-byte index j * n_items + item.  Key gives key.item(item, field), an
+// item's state, then key.seg(state, j), the key of its segment j or
+// kRsNone for a segment the item does not reach (neither counted nor
+// placed).
+template <class Key, bool kPlace>
+__global__ void __launch_bounds__(kRsThreads)
+    rs_seg_pass_kernel(const Key key, int n_items, int batch, int n_fields,
+                       int n_seg, int* __restrict__ cnt,
+                       unsigned* __restrict__ sorted) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (kRsThreads / 32);
+  for (long long base = ((long long)blockIdx.x * (kRsThreads / 32) +
+                         (threadIdx.x >> 5)) * 32;
+       base < n_items; base += warps * 32) {
+    const long long t = base + lane;
+    const bool ok = t < n_items;
+    int item = 0;
+    typename Key::Item it{};
+    if (ok) {
+      const int f = (int)(t / batch);
+      item = (int)(t - (long long)f * batch) * n_fields + f;
+      it = key.item(item, f);
+    }
+    for (int j = 0; j < n_seg; ++j) {
+      const unsigned k = ok ? key.seg(it, j) : kRsNone;
+      const unsigned peers = __match_any_sync(kRsFull, k);
+      const int leader = __ffs(peers) - 1;
+      if (!kPlace) {
+        if (k != kRsNone && lane == leader) atomicAdd(cnt + k, __popc(peers));
+      } else {
+        int at = 0;
+        if (k != kRsNone && lane == leader)
+          at = atomicAdd(cnt + k, __popc(peers));
+        at = __shfl_sync(kRsFull, at, leader);
+        if (k != kRsNone)
+          sorted[at + __popc(peers & ((1u << lane) - 1u))] =
+              (unsigned)j * (unsigned)n_items + (unsigned)item;
+      }
+    }
+  }
+}
+
+// Sort the (item, segment) pairs of n_items = batch * n_fields items by
+// key (n_keys keys): cnt [n_keys] ends as each key's end, tiles holds
+// rs_tiles(n_keys) ints, sorted a place a pair.
+template <class Key>
+static inline int rs_seg_sort(const Key& key, int n_items, int batch,
+                              int n_fields, int n_seg, long long n_keys,
+                              int* cnt, int* tiles, unsigned* sorted,
+                              cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(cnt, 0, 4 * (size_t)n_keys, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = ((long long)n_items + kRsThreads - 1) / kRsThreads;
+  const int grid = (int)(need < kRsMaxBlocks ? need : kRsMaxBlocks);
+  rs_seg_pass_kernel<Key, false><<<grid, kRsThreads, 0, st>>>(
+      key, n_items, batch, n_fields, n_seg, cnt, sorted);
+  const long long n_tiles = rs_tiles(n_keys);
+  if (n_tiles == 1) {
+    rs_scan_kernel<<<1, kRsScanThreads, 0, st>>>(cnt, (int)n_keys, nullptr);
+  } else {
+    rs_tile_sum_kernel<<<(int)n_tiles, kRsScanThreads, 0, st>>>(
+        cnt, (int)n_keys, tiles);
+    rs_scan_kernel<<<1, kRsScanThreads, 0, st>>>(tiles, (int)n_tiles,
+                                                 nullptr);
+    rs_scan_kernel<<<(int)n_tiles, kRsScanThreads, 0, st>>>(
+        cnt, (int)n_keys, tiles);
+  }
+  rs_seg_pass_kernel<Key, true><<<grid, kRsThreads, 0, st>>>(
+      key, n_items, batch, n_fields, n_seg, cnt, sorted);
+  return (int)cudaGetLastError();
+}
+
 // out[i] = the f32 workspace rounded once into bf16.
 __global__ void rs_round_kernel(const float* __restrict__ ws,
                                 __nv_bfloat16* __restrict__ out,

@@ -12,23 +12,67 @@ it is held against.
 ``qrobe_lookup_bwd_cuda`` launches ``csrc/qrobe_lookup_bwd.cu`` (the port
 of the JAX package's ``_qrobe_bwd`` and of the gradient its autodiff gives
 the backend's ``delta`` term): the cotangent [B, F, dim] -> (the scales'
-gradient, ``delta``'s gradient), the second by ``robe_lookup_bwd``'s
-bucketed scatter of ``g · sign`` into an f32 workspace, the first summed
-from it (``code · gdelta`` over each group) in one more pass.
+gradient, ``delta``'s gradient).  Its (item, segment) pairs are ordered by
+band of their first slot (``bwd_plan`` sizes the scratch); a warp sums a
+band's pairs in registers and sends each run's sums once into ``delta``'s
+gradient and, times the codes, into the scales'.
 ``qrobe_lookup_bwd_ref`` is its plain version.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.robe import RobeSpec
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import qrobe_lookup_bwd_ref, qrobe_lookup_ref
-from repro_torch.kernels.robe_lookup import STAGE_PAIRS, bwd_plan
 
 __all__ = ["qrobe_lookup_cuda", "qrobe_lookup_ref", "qrobe_lookup_bwd_cuda",
-           "qrobe_lookup_bwd_ref"]
+           "qrobe_lookup_bwd_ref", "bwd_plan"]
+
+#: slots a band of the backward's order spans, log2 (kBandLog2 in
+#: csrc/qrobe_lookup_bwd.cu): a pair's W <= 32 slots start in one band, so
+#: a band's pairs update one window of 64 slots, two registers a lane
+BAND_LOG2 = 5
+#: the longest run of elements a pair covers, log2 (kSegLog2): one warp
+MAX_SEG_LOG2 = 5
+
+
+class QrobeBwdPlan(NamedTuple):
+    """What ``qrobe_lookup_bwd.cu``'s launcher derives from the shapes."""
+    seg_log2: int     # a pair's run of elements: W = 2^seg_log2 <= Z, 32
+    n_seg: int        # pairs an item can span
+    n_bands: int      # ceil(|M| / 2^BAND_LOG2)
+    scan_tiles: int   # tiles of _build.SORT_TILE bands the scan takes
+    n_groups: int     # scale groups, ceil(|M| / 2^group_log2)
+    scratch_bytes: int
+
+
+def bwd_plan(spec: RobeSpec, n_items: int, dim: int,
+             group_log2: int) -> QrobeBwdPlan:
+    """The backward's plan for ``n_items`` (row, field) items at width
+    ``dim``: an item's elements are cut into pairs, runs of at most W =
+    min(Z, 32) elements aligned to W (so each lies in one ROBE block), and
+    the pairs ordered by band of 2^BAND_LOG2 slots of their first slot.
+    The scratch holds a count (then an end) a band, a sum a tile of the
+    scan, each pair's index in band order (4 bytes) and the scales' f32
+    sums, every part 256-byte aligned."""
+    lw = min(spec.log2_z, MAX_SEG_LOG2)
+    w = 1 << lw
+    if dim % w == 0:
+        n_seg = dim // w
+    elif w % dim == 0:
+        n_seg = 1
+    else:
+        n_seg = ((dim - 1) >> lw) + 2
+    n_bands = ((spec.size - 1) >> BAND_LOG2) + 1
+    tiles = -(-n_bands // _build.SORT_TILE)
+    n_groups = ((spec.size - 1) >> group_log2) + 1
+    scratch = _build.align(4 * n_bands) + _build.align(4 * tiles) \
+        + _build.align(4 * n_items * n_seg) + _build.align(4 * n_groups)
+    return QrobeBwdPlan(lw, n_seg, n_bands, tiles, n_groups, scratch)
 
 
 def qrobe_lookup_cuda(codes: torch.Tensor, scale: torch.Tensor,
@@ -123,16 +167,18 @@ def qrobe_lookup_bwd_cuda(g: torch.Tensor, codes: torch.Tensor,
         raise ValueError(f"{len(tids)} table ids for {f} fields")
     if dim < 1 or b * f >= 2 ** 31:
         raise ValueError(f"unsupported shape: B*F = {b * f}, dim = {dim}")
-    plan = bwd_plan(spec, f, b * f, dim)
-    if b * f * plan.n_seg >= 2 ** 31 or plan.n_seg > STAGE_PAIRS:
+    plan = bwd_plan(spec, b * f, dim, group_log2)
+    if b * f * plan.n_seg >= 2 ** 31:
         raise ValueError(f"too many (item, segment) pairs for one launch: "
                          f"{b * f} items of {plan.n_seg}")
     code = _build.dtype_code(g)
     gdelta = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
-    gscale = torch.zeros(-(-spec.size // (1 << group_log2)), dtype=g.dtype,
-                         device=g.device)
+    # f32 scales are summed in place; bf16 ones are written from the f32
+    # sums in the scratch
+    gscale = (torch.zeros if g.dtype == torch.float32 else torch.empty)(
+        plan.n_groups, dtype=g.dtype, device=g.device)
     if b == 0:
-        return gscale, gdelta
+        return gscale.zero_(), gdelta
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=g.device)
     coeffs, tid_arr = _build.hash_args(spec, tids)

@@ -1122,15 +1122,15 @@ def test_bwd_sym_map_gathers_interaction_sym(f, self_int):
 def test_robe_lookup_bwd_constants_match_the_kernel_source():
     """BAND_LOG2, MAX_BUCKETS and MAX_SEG_LOG2 of kernels/robe_lookup.py
     are the constants csrc/robe_lookup_bwd.cu builds with (from the
-    scatter's header, csrc/robe_scatter.cuh, which qrobe_lookup_bwd.cu
-    shares)."""
+    scatter's header, csrc/robe_scatter.cuh, which it alone includes)."""
     import importlib
     from repro_torch.kernels import _build
     rl = importlib.import_module("repro_torch.kernels.robe_lookup")
     assert '#include "robe_scatter.cuh"' in (
         _build.CSRC / "robe_lookup_bwd.cu").read_text()
-    assert '#include "robe_scatter.cuh"' in (
-        _build.CSRC / "qrobe_lookup_bwd.cu").read_text()
+    assert [p.name for p in sorted(_build.CSRC.iterdir())
+            if '#include "robe_scatter.cuh"' in p.read_text()] == \
+        ["robe_lookup_bwd.cu"]
     src = (_build.CSRC / "robe_scatter.cuh").read_text()
     assert _const("kBandLog2", src) == rl.BAND_LOG2
     assert _const("kMaxBuckets", src) == rl.MAX_BUCKETS
@@ -1167,6 +1167,198 @@ def test_robe_lookup_bwd_plan(size, f, items, dim, z, want):
     from repro_torch.kernels.robe_lookup import bwd_plan
     spec = TRobeSpec(size=size, block_size=z, seed=0)
     assert tuple(bwd_plan(spec, f, items, dim)) == want
+
+
+def test_qrobe_lookup_bwd_constants_match_the_kernel_source():
+    """BAND_LOG2 and MAX_SEG_LOG2 of kernels/qrobe_lookup.py are the
+    constants csrc/qrobe_lookup_bwd.cu builds with; it takes its count,
+    scan, place and rounding passes from csrc/row_sort.cuh (the pair sort
+    rs_seg_sort, with no copy of its own), not robe_lookup_bwd's scatter,
+    and has no pass over all of |M|."""
+    import importlib
+    from repro_torch.kernels import _build
+    ql = importlib.import_module("repro_torch.kernels.qrobe_lookup")
+    src = (_build.CSRC / "qrobe_lookup_bwd.cu").read_text()
+    assert '#include "robe_scatter.cuh"' not in src
+    assert '#include "row_sort.cuh"' in src
+    assert "qrobe_group_kernel" not in src
+    assert "rs_seg_sort(QbKey{" in src and "__match_any_sync(" not in src
+    assert _const("kBandLog2", src) == ql.BAND_LOG2
+    assert _const("kSegLog2", src) == ql.MAX_SEG_LOG2
+    # a pair's W <= 32 slots start in one band: a band's pairs update one
+    # window of two 32-slot lines
+    assert 1 << ql.MAX_SEG_LOG2 <= 1 << ql.BAND_LOG2 == 32
+    sort_src = (_build.CSRC / "row_sort.cuh").read_text()
+    assert _const("kRsScanThreads", sort_src) * 4 == _build.SORT_TILE
+    assert "rs_seg_pass_kernel" in sort_src
+
+
+@pytest.mark.parametrize("size,items,dim,z,gl,want", [
+    # full width: 4 pairs an item; 816,739 bands of 32 slots (200 tiles of
+    # the scan), 6,815,744 sorted pair indices, 102,093 scale groups
+    (26_135_627, 65536 * 26, 128, 32, 8,
+     (5, 4, 816_739, 200, 102_093,
+      3_267_072 + 1024 + 27_262_976 + 408_576)),
+    # the quickstart's 18,400-slot array: one pair an item (d = 16 < Z)
+    (18_400, 4096, 16, 32, 8, (5, 1, 575, 1, 72, 2304 + 256 + 16384 + 512)),
+    # Z = 16 < d = 24: an item starts mid-block, so up to 3 pairs
+    (4096, 509 * 26, 24, 16, 8, (4, 3, 128, 1, 16,
+                                 512 + 256 + 158_976 + 256)),
+    # Z = 1: a pair an element; Z = 64 > 32: pairs of 32 inside a block
+    (4096, 10, 40, 1, 8, (0, 40, 128, 1, 16, 512 + 256 + 1792 + 256)),
+    (4096, 10, 130, 64, 8, (5, 6, 128, 1, 16, 512 + 256 + 256 + 256)),
+    # |M| = 2^22 + 1: one slot past a power of two opens a band, a scan
+    # tile and a scale group of their own; at G = 0 a group a slot
+    (2 ** 22 + 1, 26, 128, 32, 8, (5, 4, 131_073, 33, 16_385,
+                                   524_544 + 256 + 512 + 65_792)),
+    (2 ** 22 + 1, 26, 128, 32, 0, (5, 4, 131_073, 33, 2 ** 22 + 1,
+                                   524_544 + 256 + 512 + 16_777_472)),
+])
+def test_qrobe_lookup_bwd_plan(size, items, dim, z, gl, want):
+    from repro_torch.kernels.qrobe_lookup import bwd_plan
+    spec = TRobeSpec(size=size, block_size=z, seed=0)
+    assert tuple(bwd_plan(spec, items, dim, gl)) == want
+
+
+def _qrobe_walk_mirror(g, codes, rows, tids, dim, spec, gl, chunk, seed=0):
+    """The order and walk of csrc/qrobe_lookup_bwd.cu in Python: every
+    (item, segment) pair ordered by band of its first slot (slot0 >> 5, in
+    an arbitrary order within a band), taken ``chunk`` places a warp; a
+    warp sums a band's pairs into a window of 64 slots from the band's
+    first (lane l of a pair at offset o into slot o + l, the sign
+    applied), and flushes the window when the band changes and at its
+    chunk's end: each slot that holds a value (wrapped once at |M|) into
+    delta's gradient, and, line by line, code * sum over each run of lanes
+    of one scale group into that group's gradient.  Sums in f64.  Returns
+    (gscale, gdelta, most delta atomics on one slot, the most pairs one
+    band holds, the pairs that wrap, the lines whose scale runs are more
+    than one)."""
+    from repro_torch.core.robe import robe_signs, robe_slots
+    from repro_torch.kernels.qrobe_lookup import BAND_LOG2, bwd_plan
+    b, f = rows.shape
+    m = spec.size
+    plan = bwd_plan(spec, b * f, dim, gl)
+    lw, w = plan.seg_log2, 1 << plan.seg_log2
+    t = torch.as_tensor(tids, dtype=torch.int64)[None, :]
+    slots = robe_slots(spec, t, rows, dim)
+    gs = g.double()
+    if spec.use_sign:
+        gs = gs * robe_signs(spec, t, rows, dim).double()
+    pairs = []                       # (slot0, {lane: value})
+    for bb, ff in itertools.product(range(b), range(f)):
+        k0 = int(rows[bb, ff]) * dim
+        for j in range(plan.n_seg):
+            start = ((k0 >> lw) + j) << lw
+            if start >= k0 + dim:
+                continue
+            vals = {lane: float(gs[bb, ff, start + lane - k0])
+                    for lane in range(w) if 0 <= start + lane - k0 < dim}
+            lane = next(iter(vals))       # slot0 from a lane the item has
+            slot0 = (int(slots[bb, ff, start + lane - k0]) - lane) % m
+            pairs.append((slot0, vals))
+    tie = np.random.default_rng(seed).permutation(len(pairs))
+    order = sorted(range(len(pairs)),
+                   key=lambda q: (pairs[q][0] >> BAND_LOG2, tie[q]))
+    gdelta = torch.zeros(m, dtype=torch.float64)
+    gscale = torch.zeros(plan.n_groups, dtype=torch.float64)
+    hits = torch.zeros(m, dtype=torch.int64)
+    split_lines = 0
+
+    def flush(band, acc):
+        nonlocal split_lines
+        base = band << BAND_LOG2
+        for h in range(2):
+            line = acc[32 * h:32 * h + 32]
+            if not any(line):
+                continue
+            prods, grps = [], []
+            for lane in range(32):
+                s = base + 32 * h + lane
+                s = s - m if s >= m else s
+                prods.append(line[lane] * int(codes[s]) if line[lane]
+                             else 0.0)
+                grps.append(s >> gl)
+                if line[lane]:
+                    gdelta[s] += line[lane]
+                    hits[s] += 1
+            runs = [(k, list(v)) for k, v in itertools.groupby(
+                range(32), key=lambda lane: grps[lane])]
+            sums = [(k, sum(prods[lane] for lane in v)) for k, v in runs]
+            split_lines += sum(1 for _, x in sums if x) > 1
+            for k, x in sums:
+                if x:
+                    gscale[k] += x
+
+    for lo in range(0, len(order), chunk):
+        band, acc = None, [0.0] * 64
+        for q in order[lo:lo + chunk]:
+            slot0, vals = pairs[q]
+            if slot0 >> BAND_LOG2 != band:
+                if band is not None:
+                    flush(band, acc)
+                band, acc = slot0 >> BAND_LOG2, [0.0] * 64
+            o = slot0 & ((1 << BAND_LOG2) - 1)
+            for lane, v in vals.items():
+                acc[o + lane] += v
+        flush(band, acc)
+    most_band = max(sum(1 for s0, _ in pairs if s0 >> BAND_LOG2 == k)
+                    for k in {s0 >> BAND_LOG2 for s0, _ in pairs})
+    wraps = sum(1 for s0, v in pairs if s0 + max(v) >= m)
+    return gscale, gdelta, int(hits.max()), most_band, wraps, split_lines
+
+
+@pytest.mark.parametrize("dim,z,size,gl,sign,chunk", [
+    (128, 32, 4096 + 75, 8, False, 32),     # full-width pairs, zipf heads
+    (128, 32, 4096 + 75, 8, True, 256),
+    (24, 16, 4096 + 75, 8, True, 32),       # pairs cut by the item's edges
+    (16, 16, 1029, 4, False, 32),           # groups of 16: runs in a line
+    (8, 32, 1029, 8, True, 64),             # d < Z: items share a block
+    (40, 1, 1029, 8, False, 32),            # a pair an element
+    (130, 64, 1029, 0, True, 32),           # a group a slot
+    (128, 32, 2 ** 12 + 5, 8, True, 32),    # a 5-slot last group
+])
+def test_qrobe_bwd_walk_mirror_matches_plain_version(dim, z, size, gl, sign,
+                                                     chunk):
+    """A Python mirror of the qrobe backward's order and walk (pairs by
+    band of their first slot, run sums in a 64-slot window, one flush a
+    band run with the scales' runs per group, the wrap at |M| into the
+    last partial group) equals qrobe_lookup_bwd_ref on small arrays whose
+    ids repeat, within the kernel's bound 1e-5·A + 1e-7 (A on |g| and
+    |code|).  A slot takes one delta atomic at most for each chunk that
+    holds pairs of the two bands whose windows reach it."""
+    rng = np.random.default_rng(dim * 31 + z + size)
+    b, vocabs = 40, (50, 9, 400)
+    ids = np.stack([np.minimum(rng.zipf(1.3, size=b) - 1, v - 1)
+                    for v in vocabs], axis=1)
+    ids[:, 1] = 4                               # a field at a single row
+    tids = (0, 1, 2)
+    spec = TRobeSpec(size=size, block_size=z, seed=5, use_sign=sign)
+    # field 0 also takes rows whose elements run from slot |M| - 1 on to
+    # slot 0 inside one block: pairs that wrap, into the last scale group
+    # (at Z = 1 no pair wraps: rows that read slot |M| - 1)
+    from repro_torch.core.robe import robe_slots
+    cand = torch.arange(20000, dtype=torch.int32).view(-1, 1)
+    s = robe_slots(spec, torch.zeros((1, 1), dtype=torch.int64), cand, dim)
+    at = (s[..., :-1] == size - 1) & (s[..., 1:] == 0) if z > 1 \
+        else s == size - 1
+    wrap = cand[at.any(-1)[:, 0], 0]
+    ids[:len(wrap[:3]), 0] = wrap[:3].numpy()
+    rows = torch.from_numpy(ids.astype(np.int32))
+    codes = torch.from_numpy(rng.integers(-127, 128, size, dtype=np.int8))
+    g = torch.from_numpy(rng.standard_normal((b, 3, dim)).astype(np.float32))
+    gscale, gdelta, most, most_band, wraps, split = _qrobe_walk_mirror(
+        g, codes, rows, tids, dim, spec, gl, chunk)
+    ws, wd = tref.qrobe_lookup_bwd_ref(g, codes, rows, tids, dim, spec, gl)
+    a_s, a_d = tref.qrobe_lookup_bwd_ref(
+        g.abs(), codes.abs(), rows, tids, dim,
+        TRobeSpec(size=size, block_size=z, seed=5), gl)
+    for x, y, a in ((gscale, ws, a_s), (gdelta, wd, a_d)):
+        assert bool(((x - y.double()).abs() <= 1e-5 * a + 1e-7).all())
+    assert most <= 2 * (-(-most_band // chunk) + 1)
+    assert (wraps > 0) == (z > 1)
+    assert float(a_d[-1]) > 0 and float(a_s[-1]) > 0
+    if gl <= 4:               # lines flush more than one group's run
+        assert split > 0
 
 
 @pytest.mark.parametrize("dim,z", [(24, 16), (16, 16), (8, 32), (40, 1),

@@ -6,9 +6,11 @@ receives, on one card.
 Builds a counting copy of ``src/repro_torch/kernels/csrc`` under
 ``build/atomic_chains/``: every global atomic of a backward into a
 gradient adds 1 instead of its value, under the same condition -- the
-scatter's ``atomicAdd(ws + slot, val)`` in robe_scatter.cuh, which
-robe_lookup_bwd and qrobe_lookup_bwd share; the walk's ``atomicAdd(dst +
-x, v)`` in qr_lookup_bwd.cu, which sends both its dR and its dQ rows; in
+scatter's ``atomicAdd(ws + slot, val)`` in robe_scatter.cuh
+(robe_lookup_bwd's); in qrobe_lookup_bwd.cu the flush's REDs into
+delta's gradient, ``atomicAdd(ws + slot, a)``, and its one atomic a scale
+group and line, ``atomicAdd(ws_scale + grp, x)``; the walk's
+``atomicAdd(dst + x, v)`` in qr_lookup_bwd.cu, which sends both its dR and its dQ rows; in
 tt_lookup_bwd.cu the first design's ``atomicAdd(dst + e, sa[e])`` and
 the ranked walk's four (its core1 run's ``v``, its core2 sums
 ``acc3[s]``, its core0 slots' ``v`` where a block has no copy of core0's
@@ -18,7 +20,7 @@ the block's copy (``atomicAdd(sm0 + ...)``) among them, are not atomics
 of a gradient and are not counted.
 Each f32 gradient the wrappers return then holds, element by element, the
 number of atomics it received.  Runs robe_lookup_bwd, qrobe_lookup_bwd
-(delta's gradient, the scatter's workspace), qr_lookup_bwd and
+(delta's gradient and the scales', f32), qr_lookup_bwd and
 tt_lookup_bwd in f32 on chip_smoke.py's zipf batch of B (default 65,536)
 full-width ``dlrm-criteo-tb`` ids with a random g, and prints, per
 gradient table, the most atomics one element received and their total,
@@ -38,7 +40,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "atomic_chains"
 #: file of csrc/ -> the atomics into a gradient it holds
-SITES = {"robe_scatter.cuh": 1, "qr_lookup_bwd.cu": 1, "tt_lookup_bwd.cu": 5}
+SITES = {"robe_scatter.cuh": 1, "qrobe_lookup_bwd.cu": 4,
+         "qr_lookup_bwd.cu": 1, "tt_lookup_bwd.cu": 5}
 #: a global gradient atomic: into ws or dst
 ATOMIC = re.compile(r"atomicAdd\(((?:ws|dst)\w* \+ [^;]*?), ([\w\[\]]+)\);")
 
@@ -97,13 +100,16 @@ def main() -> int:
     rows = cs.bulk_inputs(gen, dev, b, 1)[0]
     g = torch.randn((b, cs.F, cs.D), generator=gen, device=dev)
 
-    def slot_terms(sp) -> int:
-        """The most (item, element) pairs of the batch that read one slot."""
-        n = torch.zeros(sp.size, dtype=torch.int64, device=dev)
+    def slot_terms(sp, shift: int = 0) -> int:
+        """The most (item, element) pairs of the batch that read one slot
+        (one group of 2^shift slots)."""
+        n = torch.zeros(((sp.size - 1) >> shift) + 1, dtype=torch.int64,
+                        device=dev)
         t = torch.arange(cs.F, device=dev)[None, :]
         for s in range(0, b, 8192):
             n += torch.bincount(robe_slots(sp, t, rows[s:s + 8192],
-                                           cs.D).flatten(), minlength=sp.size)
+                                           cs.D).flatten() >> shift,
+                                minlength=n.numel())
         return int(n.max())
 
     def most(keys) -> int:
@@ -112,9 +118,11 @@ def main() -> int:
     res = {"robe_lookup_bwd": {"M": counts(
         robe_lookup_bwd_cuda(g, rows, tids, cs.D, spec), slot_terms(spec))}}
     qp = subs.params("qrobe")["embedding"]
-    res["qrobe_lookup_bwd"] = {"delta": counts(qrobe_lookup_bwd_cuda(
-        g, qp["codes"], rows, tids, cs.D, qspec, cs.GROUP_LOG2)[1],
-        slot_terms(qspec))}
+    gscale, gdelta = qrobe_lookup_bwd_cuda(g, qp["codes"], rows, tids, cs.D,
+                                           qspec, cs.GROUP_LOG2)
+    res["qrobe_lookup_bwd"] = {
+        "delta": counts(gdelta, slot_terms(qspec)),
+        "scale": counts(gscale, slot_terms(qspec, cs.GROUP_LOG2))}
     hp = subs.params("hashed")["embedding"]
     q_off, r_off, m = cs.qr_args(subs)
     dq, dr = qr_lookup_bwd_cuda(g, hp["q_table"], hp["r_table"], rows, q_off,

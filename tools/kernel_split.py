@@ -1,9 +1,9 @@
 """Split the time of the port's redesigned kernels into their parts.
 
-    python3 tools/kernel_split.py [--only di,sf,tt,rl,qb,db,rb,tb,qd]
+    python3 tools/kernel_split.py [--only di,sf,tt,rl,qb,db,rb,tb,qd,qg]
                                   [CSRC_DIR ...]
 
-Builds variants of nine kernels from the sources in each CSRC_DIR (by
+Builds variants of ten kernels from the sources in each CSRC_DIR (by
 default ``src/repro_torch/kernels/csrc``; an older tree works too, e.g.
 from ``git archive <commit> src/repro_torch/kernels/csrc | tar -x -C
 build/old``), each as it is and with one part taken out:
@@ -41,7 +41,16 @@ build/old``), each as it is and with one part taken out:
   dropped);
 - ``qr_lookup_bwd``: the walks' atomics skipped (the same store that never
   fires); the sort passes alone.  Each call of the two with the zeroing of
-  its f32 workspaces, as the wrappers do.
+  its f32 workspaces, as the wrappers do;
+- ``qrobe_lookup_bwd``: its gradient atomics skipped (the same store that
+  never fires: the band-ordered walk's REDs into delta's gradient and its
+  atomics into the scales', or the first design's scatter atomics from
+  robe_scatter.cuh, which the tool inlines); the sort passes alone (the
+  walk's launch dropped; in the first design the scatter's and the group
+  pass's); in the band-ordered design, every window flushed by the
+  general line flush (``qb_flush_lines``) instead of the per-group path
+  of windows that lie in one group.  Each call with the zeroing of
+  delta's and the scales' gradients, as the wrapper does; f32.
 
 Each variant is compiled with nvcc into its own library under
 ``build/kernel_split/`` (all at once) and timed at B=512 and B=262144 on
@@ -51,13 +60,14 @@ codes with one f32 scale per 256 slots; TT factors (589, 589, 589), dims
 of 21 runs of 8 back-to-back launches), beside ``torch.bmm`` on the same
 [B, 27, 128] input; the two backwards at B=512 and B=65536 (the training
 batch), ``dot_interaction_bwd`` beside ``torch.bmm(sym, feats)``; the
-substrates' two backwards at B=512 and B=65536 on the full-width tables
-(QR: m = 8,192, 24,941 Q rows and 212,992 R rows).
+substrates' three backwards at B=512 and B=65536 on the full-width tables
+(QR: m = 8,192, 24,941 Q rows and 212,992 R rows; qrobe: int8 codes, a
+scale per 256 slots).
 Several CSRC_DIRs are timed in one process, in turns; ``--only`` keeps
 the named kernels (di = dot_interaction, sf = serve_fused, tt =
 tt_lookup, rl = robe_lookup, qb = qrobe_lookup, db =
 dot_interaction_bwd, rb = robe_lookup_bwd, tb = tt_lookup_bwd, qd =
-qr_lookup_bwd).
+qr_lookup_bwd, qg = qrobe_lookup_bwd).
 Prints one JSON object, the card's name and power limit included.  The
 variants are made at run time and never kept in the repository.  Needs
 one CUDA card and nvcc.
@@ -218,6 +228,21 @@ QD_PARTS = {
                   None)],
     "sortonly": [(r"qr_walk_kernel<[^>]*><<<[^;]*;", ";", 1)],
 }
+# qrobe_lookup_bwd: its gradient atomics (the band-ordered walk's four: the
+# REDs of a flush and of a wrapping flush, a wrapping flush's group sums and
+# a group's share, into ws and ws_scale; the first design's scatter's one,
+# into ws), or the launches after the sort passes
+QG_SITE = r"atomicAdd\((ws\w* \+ \w+),\s*(\w+)\);"
+QG_PARTS = {
+    "noatomic": ([(QG_SITE, NEVER, 1)], [(QG_SITE, NEVER, 4)]),
+    "sortonly": ([(r"rb_scatter_kernel<T><<<[^;]*;", ";", 1),
+                  (r"qrobe_group_kernel<T><<<[^;]*;", ";", 1)],
+                 [(r"qb_walk_kernel<T, kSign><<<[^;]*;", ";", 1)]),
+    # every window through the general flush (qb_flush_lines), the common
+    # case's per-group path bypassed
+    "lines": (None, [(r"if \(group_log2 < kBandLog2 \|\| base \+ 64 > m\) "
+                      r"\{", "if (true) {", 1)]),
+}
 #: variant name -> (source, launcher, {generation: transforms} or flags)
 VARIANTS = {
     "di": ("dot_interaction.cu", {}),
@@ -252,14 +277,18 @@ VARIANTS = {
     "qd": ("qr_lookup_bwd.cu", {}),
     "qd_noatomic": ("qr_lookup_bwd.cu", {"part": "noatomic"}),
     "qd_sortonly": ("qr_lookup_bwd.cu", {"part": "sortonly"}),
+    "qg": ("qrobe_lookup_bwd.cu", {}),
+    "qg_noatomic": ("qrobe_lookup_bwd.cu", {"part": "noatomic"}),
+    "qg_sortonly": ("qrobe_lookup_bwd.cu", {"part": "sortonly"}),
+    "qg_lines": ("qrobe_lookup_bwd.cu", {"part": "lines"}),
 }
 #: the kernels timed by time_backwards and time_sub_backwards
-BACKWARDS = ("db", "rb", "tb", "qd")
+BACKWARDS = ("db", "rb", "tb", "qd", "qg")
 LAUNCHERS = {"di": "dot_interaction_launch", "sf": "serve_fused_launch",
              "tt": "tt_lookup_launch", "rl": "robe_lookup_launch",
              "qb": "qrobe_lookup_launch", "db": "dot_interaction_bwd_launch",
              "rb": "robe_lookup_bwd_launch", "tb": "tt_lookup_bwd_launch",
-             "qd": "qr_lookup_bwd_launch"}
+             "qd": "qr_lookup_bwd_launch", "qg": "qrobe_lookup_bwd_launch"}
 QROBE_GROUP_LOG2 = 8
 
 
@@ -278,7 +307,8 @@ def subst(text: str, rules, name: str) -> str:
 def variant(csrc: Path, tag: str, name: str, src: str, nogram=False,
             nosign=False, part=None):
     text = (csrc / src).read_text()
-    if src == "robe_lookup_bwd.cu" and "robe_scatter.cuh" in text:
+    if src in ("robe_lookup_bwd.cu", "qrobe_lookup_bwd.cu") and \
+            "robe_scatter.cuh" in text:
         # the passes live in a shared header: inline it, so the marked
         # sites are in the variant's own text
         text = text.replace(
@@ -306,6 +336,11 @@ def variant(csrc: Path, tag: str, name: str, src: str, nogram=False,
         text = subst(text, rules, name)
     elif part and src == "qr_lookup_bwd.cu":
         text = subst(text, QD_PARTS[part], name)
+    elif part and src == "qrobe_lookup_bwd.cu":
+        rules = QG_PARTS[part][int("qb_walk_kernel" in text)]
+        if rules is None:           # a part this design does not have
+            return None
+        text = subst(text, rules, name)
     elif part and src == "robe_lookup_bwd.cu":
         if part == "bucketonly":
             # the band-ordered design's scatter launch dropped
@@ -466,10 +501,13 @@ def time_backwards(trees, res, spec, tids, gen, dev, s) -> None:
 
 
 def time_sub_backwards(trees, res, gen, dev, s) -> None:
-    """The variants of tt_lookup_bwd and qr_lookup_bwd at B=512 and the
-    training batch B=65536, on the first zipf batches of the CTR stream and
-    the full-width tables, each call with the zeroing of its f32
-    workspaces (tt's three cores, QR's two tables) as the wrappers do."""
+    """The variants of tt_lookup_bwd, qr_lookup_bwd and qrobe_lookup_bwd at
+    B=512 and the training batch B=65536, on the first zipf batches of the
+    CTR stream and the full-width tables, each call with the zeroing of its
+    f32 workspaces (tt's three cores, QR's two tables, delta's and the
+    scales' gradients) as the wrappers do."""
+    from repro_torch.kernels.qrobe_lookup import bwd_plan as qg_plan
+    from repro_torch.kernels.robe_lookup import bwd_plan as rb_plan
     from repro_torch.nn.embedding_backends.hashed import (default_buckets,
                                                           qr_layout)
     m = default_buckets(tuple(CRITEO_TB_VOCABS))
@@ -488,6 +526,14 @@ def time_sub_backwards(trees, res, gen, dev, s) -> None:
     for v in CRITEO_TB_VOCABS[:-1]:
         tt_off.append(tt_off[-1] + v)
     off_arr = _build.field_args(tuple(tt_off))
+    spec = RobeSpec(size=SIZE, block_size=32, seed=0)
+    tids = tuple(range(F))
+    codes = torch.randint(-127, 128, (SIZE,), dtype=torch.int8,
+                          generator=gen, device=dev)
+    gl = QROBE_GROUP_LOG2
+    gdelta = torch.empty(SIZE, device=dev)
+    gscale = torch.empty(-(-SIZE >> gl), device=dev)
+    co, ta = _build.hash_args(spec, tids)
     for b, n_in in ((512, 8), (65536, 2)):
         stream = CtrStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
                                          n_dense=13, batch_size=b, seed=0))
@@ -495,8 +541,11 @@ def time_sub_backwards(trees, res, gen, dev, s) -> None:
                 for k in range(n_in)]
         gs = [torch.randn((b, F, D), generator=gen, device=dev)
               for _ in range(n_in)]
-        # the QR sort's keys, and tt's: (i2, i3) in the ranked walk
-        nbytes = _build.row_sort_bytes(max(n_q, n_r, n2 * n3), b * F)
+        # the QR sort's keys, and tt's: (i2, i3) in the ranked walk; the
+        # qrobe backward's bucketed pairs, either design's
+        nbytes = max(_build.row_sort_bytes(max(n_q, n_r, n2 * n3), b * F),
+                     rb_plan(spec, F, b * F, D).scratch_bytes,
+                     qg_plan(spec, b * F, D, gl).scratch_bytes)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
         def qd_call(x, g, fn):
@@ -519,12 +568,23 @@ def time_sub_backwards(trees, res, gen, dev, s) -> None:
                      d2, d3, r, s)
             assert err == 0, err
 
+        def qg_call(x, g, fn):
+            gdelta.zero_()
+            gscale.zero_()
+            err = fn(g.data_ptr(), x.data_ptr(), codes.data_ptr(),
+                     gdelta.data_ptr(), gscale.data_ptr(), scratch.data_ptr(),
+                     nbytes, b * F, 0, F * D, D, co, ta, F, D, spec.log2_z,
+                     0, gl, s)
+            assert err == 0, err
+
         res[f"zero_qr_ws_{b}"] = device_ms(
             lambda: (ws_q.zero_(), ws_r.zero_()), [()])
+        res[f"zero_qrobe_ws_{b}"] = device_ms(
+            lambda: (gdelta.zero_(), gscale.zero_()), [()])
         for k in VARIANTS:
-            if not k.startswith(("tb", "qd")):
+            if not k.startswith(("tb", "qd", "qg")):
                 continue
-            call = tb_call if k.startswith("tb") else qd_call
+            call = {"tb": tb_call, "qd": qd_call, "qg": qg_call}[k[:2]]
             for tag, (_, _, fns) in trees.items():
                 if k in fns:
                     res[f"{tag}_{k}_{b}"] = device_ms(
@@ -647,7 +707,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     if not only or only & {"db", "rb"}:
         time_backwards(trees, res, spec, tids, gen, dev, s)
-    if not only or only & {"tb", "qd"}:
+    if not only or only & {"tb", "qd", "qg"}:
         time_sub_backwards(trees, res, gen, dev, s)
     print(json.dumps(res))
     return 0
