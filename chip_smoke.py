@@ -99,7 +99,18 @@ non-zero on failure:
    (a); then five adagrad steps at B = 65,536 with finite losses and
    exactly one launch a step of the substrate's lookup and its backward,
    ``dot_interaction`` and ``dot_interaction_bwd``, and none of the
-   others; every run with no restart and no non-finite loss;
+   others; every run with no restart and no non-finite loss; (a) again for
+   ``full`` (100 steps; its lookup is PyTorch's row gather, so a step
+   launches only ``dot_interaction`` and its backward); (c) the restart
+   drill at full width (``restart_path``): robe adagrad at B = 65,536, 12
+   steps of ``run`` with a checkpoint every 4 into a temporary directory
+   and a node failure injected at step 9, beside the same run without it:
+   one restart, 12 steps done, the global step going on at 8 from a state
+   ``torch.equal`` to the step-8 checkpoint, the kernels launched once a
+   step, losses within 2e-3 and each param leaf's change since the start
+   within 1e-3 of its norm against the unbroken run's, then the
+   ``AsyncCheckpointer.save`` stall, its write and ``restore_latest``
+   timed (the directory is deleted);
 4. times with CUDA events (median of 21 repetitions, launches queued behind
    a sleep kernel so the host does not starve the card): each forward
    kernel at B=512 and B=262144 beside its bound (``qrobe_lookup`` also
@@ -113,7 +124,15 @@ non-zero on failure:
    for every path, with the card's busy share of the window; and one
    full-width adagrad training step at B=65536 of every substrate (host
    clock, median) with its own breakdown;
-5. one JSON line of kernel numbers, then, last, the ok line.
+5. last of the paths, after the earlier phases' tensors are freed, (e)
+   ``full`` against ``robe`` at ``dlrm-rm2`` width (d = 64) in one
+   ``EmbeddingServer``, both unfused (``full_vs_robe``): the 52.3 GB full
+   table's device lookup bit for bit equal to its ``cacheable_rows`` on a
+   zipf batch, each path's launch counts and scores (full's against the
+   CPU fed the same host rows through ``"emb"``), ``score`` at B=512 and
+   B=262,144 in turns (robe, full, full, robe), a ``torch.profiler``
+   breakdown of each at B=262,144, and the phase's peak device memory;
+6. one JSON line of kernel numbers, then, last, the ok line.
 """
 
 from __future__ import annotations
@@ -122,9 +141,11 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -162,12 +183,15 @@ from repro_torch.kernels.tt_lookup import RANKS as TT_RANKS
 from repro_torch.kernels.tt_lookup import bwd_plan as tt_bwd_plan
 from repro_torch.kernels.serve_fused import serve_fused_bwd_cuda
 from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
-                                       loss_fn, make_project_fn)
+                                       loss_fn, make_project_fn,
+                                       serve_scores)
+from repro_torch.nn.embeddings import get_backend
 from repro_torch.nn.embedding_backends.hashed import (default_buckets,
                                                       qr_layout)
 from repro_torch.nn.embedding_backends.qrobe import GROUP_LOG2
 from repro_torch.nn.embedding_backends.tt import factor_dim, factor_rows
 from repro_torch.serve.server import EmbeddingServer, ServerConfig
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.metrics import auc
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
 from repro_torch.train.train_loop import (TrainConfig, build_train_step,
@@ -235,6 +259,17 @@ TRAIN_KERNELS = {
     for kind, lookup in (("robe", "robe_lookup"),
                          ("qrobe", "qrobe_lookup"), ("hashed", "qr_lookup"),
                          ("tt", "tt_lookup"))}
+#: full's lookup is PyTorch's row gather (the JAX package's is a jnp.take,
+#: no Pallas kernel): its step runs the interaction's two kernels
+TRAIN_KERNELS["full"] = ("dot_interaction", "dot_interaction_bwd")
+#: the restart drill at full width: robe adagrad at B_TRAIN, a checkpoint
+#: every RESTART_EVERY steps, a node failure injected at RESTART_FAULT
+RESTART_STEPS, RESTART_EVERY, RESTART_FAULT = 12, 4, 9
+#: full against robe at dlrm-rm2 width (d = 64): the uncompressed table,
+#: 204,185,088 padded rows x 64 f32 = 52.3 GB, fits one 80 GB card
+RM2_DIM, RM2_BOT, RM2_TOP = 64, (512, 256, 64), (512, 512, 256, 1)
+RM2_ROWS = 204_185_088
+CACHE_CHECK_BATCH = 4096
 #: the backwards of the compressed substrates' lookups and of serve_fused
 #: (composed of robe_lookup, dot_interaction_bwd and robe_lookup_bwd)
 SUBSTRATE_BWD = ("qrobe_lookup_bwd", "qr_lookup_bwd", "tt_lookup_bwd",
@@ -1503,6 +1538,266 @@ def full_width_path(cfg: RecsysConfig, params, kind: str = "robe") -> dict:
     return res
 
 
+def state_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in leaves(tree)
+               if x is not None)
+
+
+def restart_path(cfg: RecsysConfig, params) -> dict:
+    """(c): the checkpoint and restart paths of ``run`` at full width.
+
+    ``run`` of RESTART_STEPS robe adagrad steps at B_TRAIN with a
+    checkpoint every RESTART_EVERY steps into a temporary directory and a
+    node failure injected at step RESTART_FAULT, beside the same run
+    without the fault.  The faulted run must restart once and rewind to
+    the newest checkpoint (step 8): its first step after the restart sees
+    global step 8 and batch 8, and a state ``torch.equal`` both to the
+    step-8 checkpoint on disk and to the state its first step 8 saw; every
+    step launches each kernel of ``TRAIN_KERNELS["robe"]`` once.  The
+    replayed step 8 is read against the first step 8, from that same
+    state, as the quickstart reads a step: the loss within QS_LOSS_TOL and
+    each param leaf's update within UPDATE_TOL of its norm (the scatter's
+    float atomics add in another order).  The faulted run's losses (steps
+    0..8, then 8..11 again) must be within QS_LOSS_TOL of the unbroken
+    run's.  Its final params are not held to the unbroken run's: two free
+    runs on the card drift apart by their atomics alone, so the change
+    since the start is read against the unbroken run and, as the control,
+    between the unbroken run and a second unbroken run, and both are
+    reported.  Then the ``AsyncCheckpointer.save`` stall (the host
+    snapshot), its write and ``restore_latest`` onto the card are timed
+    on the final state."""
+    batches = train_batches(B_TRAIN, RESTART_STEPS, "cpu")
+    optimizer = make_optimizer(OptimizerConfig(kind="adagrad", lr=1e-3))
+    tc = TrainConfig(checkpoint_every=RESTART_EVERY, max_restarts=1)
+    step_fn = build_train_step(lambda p, b: loss_fn(p, cfg, b), optimizer,
+                               tc)
+    rewind = RESTART_FAULT // RESTART_EVERY * RESTART_EVERY
+    res = {"steps": RESTART_STEPS, "checkpoint_every": RESTART_EVERY,
+           "fault_at": RESTART_FAULT, "batch": B_TRAIN}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for label, fault, keep in (("faulted", RESTART_FAULT, True),
+                                   ("unbroken", None, True),
+                                   ("control", None, False)):
+            steps, fetched, at_rewind = [], [], []
+
+            def spy(state, batch, steps=steps, at_rewind=at_rewind):
+                steps.append(int(state["step"]))
+                out = step_fn(state, batch)
+                if steps[-1] == rewind:
+                    at_rewind.append((state, out[0]))
+                return out
+
+            def batch_at(k, fetched=fetched):
+                fetched.append(k)
+                return batches[k]
+            d = str(Path(tmp) / label) if keep else None
+            reset_launches()
+            t0 = time.perf_counter()
+            rep = run(init_state(params, optimizer, tc), spy, batch_at,
+                      RESTART_STEPS, tc, ckpt_dir=d, inject_fault_at=fault)
+            torch.cuda.synchronize()
+            runs[label] = (rep, steps, fetched, at_rewind, d,
+                           launch_counts())
+            res[f"{label}_run_s"] = time.perf_counter() - t0
+            if keep:
+                res[f"{label}_checkpoints"] = sorted(os.listdir(d))
+        rep, steps, fetched, at_rewind, d, c = runs["faulted"]
+        print(f"restart drill: step_fn saw global steps {steps}; batches "
+              f"fetched {fetched}; checkpoints {res['faulted_checkpoints']}")
+        require(rep.restarts == 1 and rep.steps_done == RESTART_STEPS and
+                rep.nan_events == 0,
+                f"restart drill: {rep.restarts} restarts, {rep.steps_done} "
+                f"steps done, {rep.nan_events} non-finite losses")
+        require(steps == list(range(RESTART_FAULT))
+                + list(range(rewind, RESTART_STEPS)) and
+                fetched == steps,
+                f"restart drill: the global step did not go on at {rewind}")
+        for label, r in runs.items():
+            n, cc = len(r[1]), r[5]
+            require(all(v == (n if k in TRAIN_KERNELS["robe"] else 0)
+                        for k, v in cc.items()),
+                    f"restart drill ({label}, {n} steps) launched {cc}")
+        (first, first_out), (restored, replay_out) = at_rewind
+        t0 = time.perf_counter()
+        disk, man = ckpt.restore_latest(d, restored, step=rewind)
+        torch.cuda.synchronize()
+        res["restore_latest_s"] = time.perf_counter() - t0
+        require(man["step"] == rewind and int(restored["step"]) == rewind,
+                f"restart drill: restored step {int(restored['step'])}")
+        for name, a, b, o in zip(leaf_names(restored), leaves(restored),
+                                 leaves(disk), leaves(first)):
+            require(a.device == b.device and torch.equal(a, b) and
+                    torch.equal(a, o),
+                    f"restart drill: the restored state's {name} differs "
+                    f"from the step-{rewind} checkpoint or from the state "
+                    f"the first step {rewind} saw")
+        # the replayed step against the first run of it, same state
+        replay = UpdateErr(first["params"])
+        replay.add(to_device(first["params"], "cpu"), replay_out["params"],
+                   to_device(first_out["params"], "cpu"))
+        replay_reading = replay.rel()
+        for name, r in replay_reading.items():
+            require(r <= UPDATE_TOL,
+                    f"restart drill: the replayed step {rewind}'s update of "
+                    f"{name} reads {r} of its norm against the first run "
+                    f"of that step from the same state")
+        clean, control = runs["unbroken"][0], runs["control"][0]
+        # the losses of the first and the replayed step `rewind`
+        require(abs(rep.losses[rewind] - rep.losses[RESTART_FAULT])
+                <= QS_LOSS_TOL,
+                "restart drill: the replayed step's loss differs")
+        want = clean.losses[:RESTART_FAULT] + clean.losses[rewind:]
+        diff = np.abs(np.asarray(rep.losses) - np.asarray(want))
+        require(len(rep.losses) == len(want) and
+                float(diff.max()) <= QS_LOSS_TOL,
+                f"restart drill: losses {rep.losses} against the unbroken "
+                f"run's {want}")
+        start = to_device(params, "cpu")
+        since = {}
+        for label, a, b in (("vs_unbroken", rep, clean),
+                            ("control", control, clean)):
+            upd = UpdateErr(start)
+            upd.add(start, a.state["params"],
+                    to_device(b.state["params"], "cpu"))
+            since[label] = upd.rel()
+        final_disk, fman = ckpt.restore_latest(d, rep.state)
+        require(fman["step"] == RESTART_STEPS and all(
+            torch.equal(a, b) for a, b in zip(leaves(final_disk),
+                                              leaves(rep.state))),
+                "restart drill: the final checkpoint is not the final state")
+        res.update(max_loss_diff=float(diff.max()),
+                   replayed_step_update=replay_reading,
+                   change_since_start=since, losses=rep.losses,
+                   losses_unbroken=clean.losses,
+                   losses_control=control.losses, launches=c,
+                   state_bytes=state_bytes(rep.state))
+        del runs, at_rewind, first, first_out, restored, replay_out, disk
+        # one save of the final state: the stall is the host snapshot, the
+        # write runs on the saver's thread until wait() returns
+        saver = ckpt.AsyncCheckpointer(str(Path(tmp) / "timed"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(RESTART_STEPS, rep.state)
+        t1 = time.perf_counter()
+        saver.wait()
+        t2 = time.perf_counter()
+        ckpt.restore_latest(str(Path(tmp) / "timed"), rep.state)
+        torch.cuda.synchronize()
+        res.update(save_stall_ms=(t1 - t0) * 1e3, write_ms=(t2 - t1) * 1e3,
+                   restore_ms=(time.perf_counter() - t2) * 1e3)
+    print(json.dumps({"restart_full_width_robe": res}))
+    return res
+
+
+def rm2_server_config() -> ServerConfig:
+    """full and robe at ``dlrm-rm2`` width (d = 64), both unfused."""
+    return ServerConfig(vocab_sizes=CRITEO_TB_VOCABS, embed_dim=RM2_DIM,
+                        n_dense=13, bot_mlp=RM2_BOT, top_mlp=RM2_TOP,
+                        backends=("full", "robe"), robe_compression=1000,
+                        robe_block=32, cache_capacity=0, use_kernel=False,
+                        seed=SEED)
+
+
+def full_vs_robe() -> dict:
+    """(e): one ``EmbeddingServer`` holding full and robe at dlrm-rm2 width,
+    both on the unfused path.  full's device lookup must equal its
+    ``cacheable_rows`` bit for bit on a zipf batch; each path answers four
+    padded batches of 512 with its launch counts (full: dot_interaction
+    once a batch and nothing else; robe: robe_lookup and dot_interaction);
+    full's scores must equal, within SCORE_TOL, the CPU's ``serve_scores``
+    fed those host rows through the batch's ``"emb"`` key (the hot-row
+    cache's route: the 52 GB table never leaves the card), robe's the CPU
+    run of the same entry point.  Then ``score`` is timed at B=512 (median
+    of 21) and B=262,144 in turns (robe, full, full, robe), profiled at
+    B=262,144, and the card's peak memory of the phase is read."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = rm2_server_config()
+    t0 = time.perf_counter()
+    srv = EmbeddingServer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0}
+    full_p = srv.params("full")
+    table = full_p["embedding"]["table"]
+    spec = srv.recsys_config("full").embedding_spec()
+    require(tuple(table.shape) == (RM2_ROWS, RM2_DIM),
+            f"full table of shape {tuple(table.shape)}")
+    res.update(table_bytes=table.numel() * 4,
+               robe_slots=srv.recsys_config("robe").robe_size)
+    with torch.inference_mode():
+        idx = bulk_inputs(None, "cuda", CACHE_CHECK_BATCH, 1)[0]
+        emb = get_backend("full").lookup(full_p["embedding"], spec, idx)
+        host = emb.cpu().numpy()
+        for f in range(F):
+            rows = get_backend("full").cacheable_rows(
+                full_p["embedding"], spec, f, idx[:, f].cpu().numpy())
+            require(np.array_equal(rows, host[:, f]),
+                    f"full: cacheable_rows of field {f} differ from the "
+                    f"device lookup")
+        res["cache_check_rows"] = CACHE_CHECK_BATCH * F
+        del emb, host
+        batches = padded_batches((512, 512, 437, 512), B_P99)
+        robe_cpu = EmbeddingServer(dataclasses.replace(
+            cfg, backends=("robe",)), params={
+                "robe": to_device(srv.params("robe"), "cpu")}, device="cpu")
+        mlp_cpu = {k: to_device(v, "cpu") for k, v in full_p.items()
+                   if k != "embedding"}
+        counts = {}
+        for kind, need in (("full", ("dot_interaction",)),
+                           ("robe", ("robe_lookup", "dot_interaction"))):
+            scores, c = run_path(srv, batches, kind)
+            counts[kind] = c
+            print(f"launches {kind} path (dlrm-rm2): {c}")
+            require(all(v == (len(batches) if k in need else 0)
+                        for k, v in c.items()),
+                    f"the {kind} path at dlrm-rm2 width must launch each of "
+                    f"{need} once a batch and no other kernel")
+            diff = 0.0
+            for (batch, n), got in zip(batches, scores):
+                require(got.shape == (n,) and np.isfinite(got).all(),
+                        f"{kind} (dlrm-rm2): scores of shape {got.shape}")
+                if kind == "full":
+                    ids = batch["sparse"]
+                    rows = np.stack([get_backend("full").cacheable_rows(
+                        full_p["embedding"], spec, f, ids[:, f])
+                        for f in range(F)], axis=1)
+                    want = serve_scores(
+                        dict(mlp_cpu, embedding={}),
+                        srv.recsys_config("full"),
+                        {"dense": torch.from_numpy(batch["dense"]),
+                         "emb": torch.from_numpy(rows)}).numpy()[:n]
+                else:
+                    want = robe_cpu.score("robe", batch, n)
+                diff = max(diff, float(np.abs(got - want).max()))
+                require(np.allclose(got, want, rtol=SCORE_TOL,
+                                    atol=SCORE_TOL),
+                        f"{kind} (dlrm-rm2): card scores differ from the CPU "
+                        f"by {np.abs(got - want).max()}")
+            res[f"{kind}_cpu_max_diff"] = diff
+        res["launches"] = counts
+        del robe_cpu, mlp_cpu
+        times = {}
+        for size in (B_P99, B_BULK):
+            batch, n = padded_batches((size,), size)[0]
+            for turn, kind in enumerate(("robe", "full", "full", "robe")):
+                times[f"{kind}_{size}_turn{turn}"] = host_ms(
+                    lambda: srv.score(kind, batch, n))
+        res["score_ms"] = times
+        for size in (B_P99, B_BULK):
+            f_ms = statistics.mean(v for k, v in times.items()
+                                   if k.startswith(f"full_{size}_"))
+            r_ms = statistics.mean(v for k, v in times.items()
+                                   if k.startswith(f"robe_{size}_"))
+            res[f"full_over_robe_{size}"] = f_ms / r_ms
+        batch, n = padded_batches((B_BULK,), B_BULK)[0]
+        res["profile_score_262144"] = {
+            kind: device_breakdown(lambda: srv.score(kind, batch, n))
+            for kind in ("robe", "full")}
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(json.dumps({"full_vs_robe_dlrm_rm2": res}))
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
@@ -1698,10 +1993,9 @@ def time_backwards(gen, spec, rates, dev) -> dict:
         gts = [torch.randn((b, p), generator=gen, device=dev)
                for _ in range(n_in)]
         uniq = int(touched_slots(spec, rows[0]).sum())
-        # bytes: g and the rows read, the |M| f32 workspace zeroed, each
-        # touched slot read and written once by the atomics
+        # bytes: g and the rows read, the |M| f32 gradient written once
         rb["bound_ms" + tag], rb["bound_by" + tag] = bound(
-            b * F * D * 4 + b * F * 4 + spec.size * 4 + 8 * uniq, 0, rates)
+            b * F * D * 4 + b * F * 4 + spec.size * 4, 0, rates)
         rb["touched_slots" + tag] = uniq
         rb["library_ms" + tag] = None
         # bytes: feats and g read, dfeats written; FLOP 2·B·F²·D
@@ -1974,7 +2268,12 @@ def main() -> int:
         quickstart_path(kind)
         full[kind] = full_width_path(train_cfgs[kind], train_params[kind],
                                      kind)
+    quickstart_path("full")
     print(f"training paths ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    restart_path(train_cfgs["robe"], train_params["robe"])
+    print(f"restart drill ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     paths = {"fused": (fused, "robe"), "unfused": (unfused, "robe"),
@@ -1994,6 +2293,16 @@ def main() -> int:
     print(json.dumps({"train_step_65536": train_step}))
     print(json.dumps({"score_ms": scores, "batch": B_P99,
                       "batch_bulk": B_BULK, "card": smi}))
+
+    # last: full against robe at dlrm-rm2 width, with the 52 GB table; the
+    # earlier phases' tensors are freed first and their peak is kept
+    peak = torch.cuda.max_memory_allocated()
+    del fused, unfused, subs, paths, train_params, memory
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full_vs_robe()
+    print(f"full against robe ok ({time.perf_counter() - t0:.1f} s); peak "
+          f"memory of the earlier phases {peak} B")
 
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],

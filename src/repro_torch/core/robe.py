@@ -19,12 +19,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.hashing import UHash
 
 __all__ = ["RobeSpec", "init_memory", "robe_slots", "robe_signs",
-           "robe_lookup", "robe_lookup_bag"]
+           "robe_lookup", "robe_lookup_bag", "sketch_vector",
+           "unsketch_vector"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,3 +145,36 @@ def robe_lookup_bag(memory: torch.Tensor, spec: RobeSpec, table_ids,
     elif combiner != "sum":
         raise ValueError(f"unknown combiner {combiner}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sketch interface of the theory checks (paper §3): project an explicit
+# parameter vector θ ∈ R^n into R^m with the ROBE-Z sketching matrix.
+# ---------------------------------------------------------------------------
+
+def _sketch_map(n: int, spec: RobeSpec) -> tuple:
+    """(slots, signs) of θ's n elements as row 0's elements of table 0,
+    each a row of width 1 (numpy int64, f32)."""
+    rows = torch.arange(n, dtype=torch.int64)
+    slots = robe_slots(spec, 0, rows, 1)[:, 0].numpy()
+    s = robe_signs(spec, 0, rows, 1)[:, 0].numpy() if spec.use_sign \
+        else np.ones(n)
+    return slots, s
+
+
+def sketch_vector(theta: np.ndarray, spec: RobeSpec) -> np.ndarray:
+    """ROBE-Z sketch θ̂ ∈ R^m of θ ∈ R^n (numpy, f64; analysis helper).
+
+    Equivalent to multiplying by the sketching matrix of Fig. 3b: every
+    element lands in its hashed slot (sign-weighted if use_sign).
+    """
+    slots, s = _sketch_map(theta.shape[0], spec)
+    out = np.zeros(spec.size, dtype=np.float64)
+    np.add.at(out, slots, theta * s)
+    return out
+
+
+def unsketch_vector(mem: np.ndarray, n: int, spec: RobeSpec) -> np.ndarray:
+    """Read every θ_i back out of the sketch (the lookup direction)."""
+    slots, s = _sketch_map(n, spec)
+    return mem[slots] * s

@@ -1,8 +1,8 @@
 // The bucketed scatter-add of a ROBE lookup's cotangent into an f32
 // workspace of |M| slots: every element's g[b, f, i] * sign(t_f, x, i) is
-// added into the slot its forward read.  Shared by robe_lookup_bwd.cu (the
-// gradient of M) and qrobe_lookup_bwd.cu (the gradient of the qrobe
-// backend's delta array, from which it also sums the scales' gradient).
+// added into the slot its forward read.  Only robe_lookup_bwd.cu (the
+// gradient of M) includes it: qrobe_lookup_bwd.cu sorts its pairs by band
+// with row_sort.cuh and walks them in registers instead.
 // The design (count, scan, place, then a band-ordered scatter whose warps
 // combine a window's duplicates before their atomics) is described in
 // robe_lookup_bwd.cu.  Header only, as robe_common.cuh: each .cu that

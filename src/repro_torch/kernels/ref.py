@@ -279,3 +279,30 @@ def tt_lookup_bwd_ref(g: torch.Tensor, core0: torch.Tensor,
         acc = torch.zeros(core.shape, dtype=torch.float32, device=g.device)
         out.append(acc.index_add_(0, rows, d).to(core.dtype))
     return tuple(out)
+
+
+def qr_materialize_ref(q_table: torch.Tensor, r_table: torch.Tensor,
+                       vocab_sizes, m: int) -> torch.Tensor:
+    """The whole [total_rows, dim] table a QR (quotient x remainder)
+    substrate represents: the oracle of the ``hashed`` backend's per-row
+    path (autograd-able)."""
+    out = []
+    q_off = 0
+    for f, v in enumerate(vocab_sizes):
+        x = torch.arange(int(v), device=q_table.device)
+        out.append(q_table[q_off + x // m] * r_table[f * m + x % m])
+        q_off += -(-int(v) // m)
+    return torch.cat(out, dim=0)
+
+
+def tt_materialize_ref(core0: torch.Tensor, core1: torch.Tensor,
+                       core2: torch.Tensor) -> torch.Tensor:
+    """The whole [n1·n2·n3, d1·d2·d3] table a tensor-train substrate
+    represents, by one whole-tensor einsum (autograd-able): the oracle of
+    the ``tt`` backend's per-row chain.  Row g is (i1, i2, i3) with i3
+    fastest, the backend's mixed-radix split."""
+    n1, d1, _ = core0.shape
+    n2, _, d2, _ = core1.shape
+    n3, _, d3 = core2.shape
+    t = torch.einsum("iap,jpbq,kqc->ijkabc", core0, core1, core2)
+    return t.reshape(n1 * n2 * n3, d1 * d2 * d3)

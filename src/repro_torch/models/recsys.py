@@ -78,7 +78,11 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator,
     f = cfg.n_fields
     n_pairs = (f + 1) * f // 2          # F embeddings + bottom output
     return {
-        "embedding": embedding_init(generator, spec, device),
+        # the full table's rows padded to a multiple of 512, as the JAX
+        # package pads them to row-shard evenly, so its params load leaf
+        # for leaf
+        "embedding": embedding_init(generator, spec, device,
+                                    pad_rows_to=512),
         "bot": mlp_init(generator, (cfg.n_dense,) + cfg.bot_mlp, device),
         "top": mlp_init(generator, (cfg.bot_mlp[-1] + n_pairs,)
                         + cfg.top_mlp, device),

@@ -5,7 +5,7 @@ An embedding *backend* is one substrate for the model's categorical
 features: a way to store the logical [total_rows, dim] table and answer
 row lookups.
 
-* ``init(generator, spec, device)``     -> parameter dict
+* ``init(generator, spec, device, pad_rows_to)`` -> parameter dict
 * ``lookup(params, spec, idx, fields)`` -> [B, F', dim] embeddings
 * ``lookup_bag(params, spec, idx, ...)``-> pooled multi-hot lookups
 * ``cost(spec, batch)``                 -> {"params", "bytes_fetched",
@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 #: backends of the JAX package that this package does not have yet
-NOT_YET_PORTED = ("full",)
+NOT_YET_PORTED: Tuple[str, ...] = ()
 
 
 class EmbeddingBackend:
@@ -44,7 +44,11 @@ class EmbeddingBackend:
     def validate(self, spec) -> None:
         """Raise if ``spec`` is not usable with this backend."""
 
-    def init(self, generator: torch.Generator, spec, device) -> dict:
+    def init(self, generator: torch.Generator, spec, device,
+             pad_rows_to: int = 1) -> dict:
+        """Parameters drawn from ``generator``, on ``device``;
+        ``pad_rows_to`` rounds a row table's rows up to a multiple of it
+        (read only by ``full``)."""
         raise NotImplementedError
 
     def lookup(self, params: dict, spec, idx: torch.Tensor,

@@ -55,7 +55,7 @@ def _m(spec) -> int:
 class HashedBackend(EmbeddingBackend):
     name = "hashed"
 
-    def init(self, generator, spec, device) -> dict:
+    def init(self, generator, spec, device, pad_rows_to: int = 1) -> dict:
         m = _m(spec)
         q_rows, _, _ = qr_layout(spec.vocab_sizes, m)
         # product composition: |q·r| ~ 1/√dim, the full table's row scale,

@@ -76,7 +76,7 @@ class QRobeBackend(EmbeddingBackend):
         if spec.robe is None:
             raise ValueError("robe spec required for kind='qrobe'")
 
-    def init(self, generator, spec, device) -> dict:
+    def init(self, generator, spec, device, pad_rows_to: int = 1) -> dict:
         # robe's init distribution, then max-abs per-group calibration of
         # the initial scales
         w = init_memory(generator, spec.robe, device)

@@ -39,7 +39,7 @@ class RobeBackend(EmbeddingBackend):
             raise NotImplementedError("robe placement='model' (ZeRO-3) is "
                                       "not yet ported")
 
-    def init(self, generator, spec, device) -> dict:
+    def init(self, generator, spec, device, pad_rows_to: int = 1) -> dict:
         return {"memory": init_memory(generator, spec.robe, device)}
 
     def lookup(self, params, spec, idx, fields=None):

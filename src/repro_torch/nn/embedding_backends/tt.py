@@ -65,7 +65,7 @@ def _dims(spec):
 class TensorTrainBackend(EmbeddingBackend):
     name = "tt"
 
-    def init(self, generator, spec, device) -> dict:
+    def init(self, generator, spec, device, pad_rows_to: int = 1) -> dict:
         (n1, n2, n3), (d1, d2, d3), r = _dims(spec)
         # e sums r² products of three factors: std(e) ≈ r·σ³, so σ puts
         # rows at the full table's 1/√dim scale

@@ -69,8 +69,9 @@ class EmbeddingSpec:
 
 
 def embedding_init(generator: torch.Generator, spec: EmbeddingSpec,
-                   device) -> dict:
-    return get_backend(spec.kind).init(generator, spec, device)
+                   device, pad_rows_to: int = 1) -> dict:
+    return get_backend(spec.kind).init(generator, spec, device,
+                                       pad_rows_to=pad_rows_to)
 
 
 def embedding_lookup(params: dict, spec: EmbeddingSpec, idx: torch.Tensor,

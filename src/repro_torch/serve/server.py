@@ -1,24 +1,25 @@
-"""Embedding server (PyTorch port of ``repro.serve.server``; the ``robe``,
-``qrobe``, ``hashed`` and ``tt`` substrates).
+"""Embedding server (PyTorch port of ``repro.serve.server``; the ``full``,
+``robe``, ``qrobe``, ``hashed`` and ``tt`` substrates).
 
 One ``EmbeddingServer`` holds a DLRM scoring model per resident substrate
 and routes each request to it through ``serve_scores``.  For ``robe`` with
 ``use_kernel`` that is the fused ``serve_fused`` kernel, else the unfused
-``robe_lookup`` -> concat -> ``dot_interaction`` kernels.  ``qrobe``,
-``hashed`` and ``tt`` decline the fused path and always take the unfused
-one, with their own lookup kernels (``qrobe_lookup``, which adds its
-``delta`` term in the same launch, ``qr_lookup``, ``tt_lookup``).  On the
-card every path runs the Hopper kernels; on the CPU (``device="cpu"``) the
-plain versions.
+``robe_lookup`` -> concat -> ``dot_interaction`` kernels.  ``full``,
+``qrobe``, ``hashed`` and ``tt`` decline the fused path and always take the
+unfused one, with their own lookups (``full``'s row gather, ``qrobe_lookup``,
+which adds its ``delta`` term in the same launch, ``qr_lookup``,
+``tt_lookup``).  On the card every path runs the Hopper kernels; on the CPU
+(``device="cpu"``) the plain versions.
 
 Batches arrive padded to a fixed shape with ``n_valid`` leading real rows
 (the router's ``stack_and_pad`` contract); the scorer returns only the real
 rows.  ``robe`` and ``qrobe`` decline the hot-row cache, as in the JAX
-package.  The JAX server fronts ``hashed`` with a ``HotRowCache``; this
-port builds no cache yet, so ``cache_capacity`` is not read.  Scores are
-the same either way: by the ``cacheable_rows`` contract the cached rows are
-bit-identical to the ones the lookup gathers.  Model pushes, cache warming
-and the ``full`` substrate are not yet ported.
+package.  The JAX server fronts ``full`` and ``hashed`` with a
+``HotRowCache``; this port builds no cache yet, so ``cache_capacity`` is
+not read until the serving tier is ported (ROADMAP module item 4), with
+model pushes and cache warming.  Scores are the same either way: by the
+``cacheable_rows`` contract the cached rows are bit-identical to the ones
+the lookup gathers.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from repro_torch.models.recsys import RecsysConfig, init_params, serve_scores
 
 __all__ = ["ServerConfig", "EmbeddingServer"]
 
-DEFAULT_BACKENDS = ("robe",)
+DEFAULT_BACKENDS = ("full", "robe", "hashed", "tt")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +44,8 @@ class ServerConfig:
 
     ``robe_compression`` sizes the ROBE array (robe, qrobe) at
     1/compression of the full table's parameters (the paper's 1000× knob);
-    ``cache_capacity`` rows per cacheable substrate (no cache is built yet);
+    ``cache_capacity`` rows per cacheable substrate (not read until the
+    hot-row cache is ported, ROADMAP module item 4);
     ``use_kernel`` routes robe serving through the one-pass ``serve_fused``
     kernel.
     """

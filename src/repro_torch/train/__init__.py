@@ -1,3 +1,3 @@
 """Training (PyTorch port of ``repro.train``): optimizers, the train-step
-builder and run loop, and metrics.  Checkpoints, gradient compression,
+builder and run loop, checkpoints and metrics.  Gradient compression,
 online training and elastic re-slice are not yet ported."""

@@ -9,12 +9,13 @@ hook.  PyTorch runs it eagerly: nothing is compiled, and on the card the
 DLRM's sparse work runs in the Hopper kernels of ``kernels/ops.py``,
 forward and backward.
 
-``run`` is the loop: straggler monitor (step-time EWMA, warm-up aware),
-elastic re-slice hook, injected faults and bounded restarts, with an
-injectable clock.  Checkpoints (``ckpt_dir``) and compressed gradient
-all-reduce (``grad_compression``) are not yet ported and raise;
-``TrainConfig`` gains the checkpoint and logging knobs of the JAX
-package's (``checkpoint_every``, ``keep_last``, ``log_every``) with them.
+``run`` is the production loop: a checkpoint every k steps (async,
+atomic, ``train/checkpoint.py``), resume from the newest one, NaN ->
+restore + skip the batch, straggler monitor (step-time EWMA, warm-up
+aware), elastic re-slice hook, injected faults and bounded restarts that
+rewind to the newest checkpoint, with an injectable clock.  Compressed
+gradient all-reduce (``grad_compression``) and restoring onto a mesh come
+with the port of distribution (ROADMAP module item 6) and raise.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import F32, Optimizer
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -33,12 +35,16 @@ from repro_torch.tree import leaves, tree_map, unflatten
 @dataclasses.dataclass
 class TrainConfig:
     grad_accum: int = 1
+    checkpoint_every: int = 100
+    keep_last: int = 3
     max_restarts: int = 3
+    log_every: int = 10
     grad_compression: str = "none"       # none (bf16 | int8: not ported)
     straggler_factor: float = 3.0        # step > f × EWMA ⇒ flagged
     straggler_patience: int = 3          # consecutive flags ⇒ re-slice
     #   (only with a reslice_fn; the EWMA skips warm-up steps -- the first
-    #   step, and the step after a restart or a re-slice)
+    #   step, and the step after a restore, a restart, a checkpoint save or
+    #   a re-slice)
 
 
 def _no_compression(cfg: TrainConfig) -> None:
@@ -153,23 +159,28 @@ def run(state, step_fn: Callable, batch_at: Callable[[int], dict],
         inject_fault_at: Optional[int] = None,
         reslice_fn: Optional[Callable] = None,
         timer: Callable[[], float] = time.monotonic) -> RunReport:
-    """Training loop (single process) up to global step ``n_steps``.
+    """Fault-tolerant training loop (single process) up to global step
+    ``n_steps``.
 
-    ``batch_at(step)`` must be a pure function of step; its numpy arrays
-    are moved to the state's device.  ``inject_fault_at``: raise a
-    simulated node failure at that step once; the loop restarts the step
-    (at most ``cfg.max_restarts`` restarts in a run).  ``reslice_fn(state,
-    step) -> (state, step_fn)``: called after ``cfg.straggler_patience``
-    consecutive straggler-flagged steps; the loop goes on at the same
-    global step.  ``None`` (default) keeps the monitor passive: stragglers
-    are only counted.  ``timer``: the clock of the step times, injectable
-    so that fault drills drive the straggler EWMA deterministically.  A
-    non-finite loss skips its batch (the step's guard kept the state).
+    ``batch_at(step)`` must be a pure function of step (resume
+    correctness); its numpy arrays are moved to the state's device.
+    ``ckpt_dir``: resume from its newest checkpoint, save every
+    ``cfg.checkpoint_every`` steps (``keep_last`` kept), restore the newest
+    one on a non-finite loss (the batch is skipped) and on a restart (the
+    loop rewinds to its step), and save at the end.  Without it a
+    non-finite loss only skips its batch (the step's guard kept the state)
+    and a restart retries the step.  ``inject_fault_at``: raise a
+    simulated node failure at that step once (at most ``cfg.max_restarts``
+    restarts in a run).  ``reslice_fn(state, step) -> (state, step_fn)``:
+    called after ``cfg.straggler_patience`` consecutive straggler-flagged
+    steps, with a just-flushed checkpoint on disk; the loop goes on at the
+    same global step.  ``None`` (default) keeps the monitor passive:
+    stragglers are only counted.  ``timer``: the clock of the step times,
+    injectable so that fault drills drive the straggler EWMA
+    deterministically.
     """
-    if ckpt_dir:
-        raise NotImplementedError(
-            "checkpoints (ckpt_dir) are not yet ported: they come with "
-            "ROADMAP module item 2")
+    saver = ckpt_lib.AsyncCheckpointer(ckpt_dir, cfg.keep_last) \
+        if ckpt_dir else None
     restarts = 0
     nan_events = 0
     straggler_steps = 0
@@ -183,6 +194,12 @@ def run(state, step_fn: Callable, batch_at: Callable[[int], dict],
     device = state["step"].device
 
     start = int(state["step"])
+    if ckpt_dir:
+        restored = ckpt_lib.restore_latest(ckpt_dir, state)
+        if restored is not None:
+            state, manifest = restored
+            start = int(manifest["step"])
+
     step = start
     while step < n_steps:
         try:
@@ -205,12 +222,24 @@ def run(state, step_fn: Callable, batch_at: Callable[[int], dict],
                 else:
                     straggler_run = 0
                 ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+            saved_this_step = False
             if not np.isfinite(loss):
                 nan_events += 1
-                warmup = True
+                if saver:
+                    saver.wait()        # never race the in-flight write
+                    restored = ckpt_lib.restore_latest(ckpt_dir, state)
+                    if restored is not None:
+                        state, _ = restored
+                warmup = True           # the restore pollutes the next dt
+                step += 1               # skip the poisoned batch; a
+                #   pending re-slice below must still fire
             else:
                 losses.append(loss)
-            step += 1
+                step += 1
+                if saver and step % cfg.checkpoint_every == 0:
+                    saver.save(step, state)
+                    saved_this_step = True
+                    warmup = True       # the save pollutes the next dt
             if reslice_fn is not None \
                     and straggler_run >= cfg.straggler_patience:
                 # reset the monitor first: a rebuild that fails (a restart
@@ -218,6 +247,12 @@ def run(state, step_fn: Callable, batch_at: Callable[[int], dict],
                 straggler_run = 0
                 ewma = None
                 warmup = True
+                # flush this step's state for the rebuild to restore,
+                # unless the boundary save above already holds it
+                if saver:
+                    if not saved_this_step:
+                        saver.save(step, state)
+                    saver.wait()
                 state, step_fn = reslice_fn(state, step)
                 reslices += 1
         except KeyboardInterrupt:
@@ -226,11 +261,30 @@ def run(state, step_fn: Callable, batch_at: Callable[[int], dict],
             restarts += 1
             if restarts > cfg.max_restarts:
                 raise
+            if saver:
+                try:
+                    saver.wait()        # never race the in-flight write
+                except Exception:
+                    pass                # a failed save is a missing
+                    #   snapshot: the restore falls back to the previous
+                restored = ckpt_lib.restore_latest(ckpt_dir, state)
+                if restored is not None:
+                    state, manifest = restored
+                    step = int(manifest["step"])
             warmup = True
-            # the retried step must not inherit the old timing prior
+            # the rewind replays steps: stale consecutive-flag counts and
+            # the old timing prior must not leak across the restart
             straggler_run = 0
             ewma = None
             continue
+    if saver:
+        try:
+            saver.save(step, state)
+            saver.wait()
+        except Exception:
+            # as in the loop: the previous atomic snapshot is still valid,
+            # and a finished run's report and state matter more
+            pass
     return RunReport(steps_done=step - start,
                      final_loss=losses[-1] if losses else float("nan"),
                      restarts=restarts, nan_events=nan_events,

@@ -1,14 +1,16 @@
-"""The port's ``qrobe``, ``hashed`` and ``tt`` embedding backends against
-the JAX package's.
+"""The port's ``full``, ``qrobe``, ``hashed`` and ``tt`` embedding backends
+against the JAX package's.
 
 The layout helpers and the int8 quantizer must give the same numbers as
 ``repro``'s; ``param_count`` and ``cost`` must agree at the full
 ``dlrm-criteo-tb`` width; ``init`` must build the same tree (keys, shapes,
 dtypes); and ``lookup`` on JAX-initialised params carried over by
 ``convert.params_from_numpy`` must equal the JAX backend's lookup on the
-CPU, where the port runs its plain versions.  qrobe and hashed lookups are
-gathers and one f32 product, so they match exactly; tt contracts a chain
-whose sums run in another order, so within rtol = atol = 1e-5.
+CPU, where the port runs its plain versions.  full, qrobe and hashed lookups
+are gathers (and one f32 product), so they match exactly; tt contracts a
+chain whose sums run in another order, so within rtol = atol = 1e-5.
+``full``'s ``cacheable_rows`` must give the rows its lookup gathers, bit for
+bit.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ import torch
 
 from repro.configs.registry import get_arch as j_get_arch
 from repro.core.robe import RobeSpec as JRobeSpec
+from repro.models import recsys as jrec
 from repro.nn.embedding_backends import hashed as jhashed
 from repro.nn.embedding_backends import qrobe as jqrobe
 from repro.nn.embedding_backends import tt as jtt
@@ -29,6 +32,7 @@ from repro.nn.embeddings import get_backend as j_get_backend
 from repro_torch import kernels as tk
 from repro_torch.configs.registry import get_arch as t_get_arch
 from repro_torch.convert import params_from_numpy
+from repro_torch.models import recsys as trec
 from repro_torch.core.robe import RobeSpec as TRobeSpec
 from repro_torch.nn.embedding_backends import hashed as thashed
 from repro_torch.nn.embedding_backends import qrobe as tqrobe
@@ -36,7 +40,7 @@ from repro_torch.nn.embedding_backends import tt as ttt
 from repro_torch.nn.embeddings import EmbeddingSpec as TSpec
 from repro_torch.nn.embeddings import get_backend
 
-KINDS = ("qrobe", "hashed", "tt")
+KINDS = ("full", "qrobe", "hashed", "tt")
 VOCABS = (400, 240, 640)
 
 
@@ -210,7 +214,8 @@ def test_qrobe_init_is_calibrated():
 
 
 @pytest.mark.parametrize("kind,kw", [
-    ("qrobe", {}), ("hashed", {}), ("hashed", dict(hashed_buckets=7)),
+    ("full", {}), ("qrobe", {}), ("hashed", {}),
+    ("hashed", dict(hashed_buckets=7)),
     ("tt", {}), ("tt", dict(tt_rank=4)),
 ])
 @pytest.mark.parametrize("b", (16, 13))
@@ -315,3 +320,73 @@ def test_params_from_numpy_keeps_int8_codes():
 def test_qrobe_refuses_a_spec_without_robe():
     with pytest.raises(ValueError, match="robe spec required"):
         TSpec(vocab_sizes=VOCABS, dim=8, kind="qrobe")
+
+
+# ---------------------------------------------------------------------------
+# full: padded rows, and the hot-row-cache hook
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pad", (1, 7, 512))
+def test_full_init_pads_rows_as_jax(pad):
+    jspec, tspec = _specs("full")
+    jp = j_get_backend("full").init(jax.random.PRNGKey(0), jspec,
+                                    pad_rows_to=pad)
+    tp = get_backend("full").init(torch.Generator().manual_seed(0), tspec,
+                                  "cpu", pad_rows_to=pad)
+    assert tuple(tp["table"].shape) == tuple(jp["table"].shape)
+    assert tp["table"].shape[0] % pad == 0
+    bound = 1.0 / np.sqrt(tspec.dim)
+    assert float(tp["table"].abs().max()) <= bound
+
+
+def test_full_params_of_init_params_load_leaf_for_leaf():
+    """``init_params`` pads the full table to a multiple of 512 rows in both
+    packages, so the JAX package's params carry over leaf for leaf."""
+    jcfg = j_get_arch("dlrm-rm2").make_config("smoke", embedding="full")
+    tcfg = t_get_arch("dlrm-rm2").make_config("smoke", embedding="full")
+    jparams = jrec.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = trec.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    jleaves = jax.tree_util.tree_leaves_with_path(jparams)
+    tleaves = jax.tree_util.tree_leaves_with_path(tparams)
+    assert [p for p, _ in jleaves] == [p for p, _ in tleaves]
+    for (_, a), (_, b) in zip(jleaves, tleaves):
+        assert tuple(a.shape) == tuple(b.shape)
+    rows = tparams["embedding"]["table"].shape[0]
+    assert rows % 512 == 0 and rows >= sum(tcfg.vocab_sizes)
+
+
+@pytest.mark.parametrize("field", (0, 1, 2))
+def test_full_cacheable_rows_are_the_gathered_rows(field):
+    jspec, tspec = _specs("full")
+    jp = j_get_backend("full").init(jax.random.PRNGKey(4), jspec,
+                                    pad_rows_to=512)
+    tp = _carry(jp)
+    idx = _ids(13, seed=field)
+    ids = idx[:, field]
+    got = get_backend("full").cacheable_rows(tp, tspec, field, ids)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    gathered = get_backend("full").lookup(tp, tspec, torch.from_numpy(idx))
+    np.testing.assert_array_equal(got, gathered[:, field].numpy())
+    np.testing.assert_array_equal(
+        got, j_get_backend("full").cacheable_rows(jp, jspec, field, ids))
+
+
+def test_full_lookup_is_differentiable_into_a_dense_grad():
+    """The port's gather and autograd's scatter are full's lookup and
+    backward: the gradient equals the JAX package's, padded rows zero."""
+    jspec, tspec = _specs("full")
+    jp = j_get_backend("full").init(jax.random.PRNGKey(2), jspec,
+                                    pad_rows_to=512)
+    idx = _ids(17, seed=9)
+    ct = np.random.RandomState(9).randn(17, len(VOCABS), 8).astype(
+        np.float32)
+    want = jax.grad(lambda p: (j_get_backend("full").lookup(
+        p, jspec, jnp.asarray(idx)) * jnp.asarray(ct)).sum())(jp)
+    table = _carry(jp)["table"].requires_grad_(True)
+    out = get_backend("full").lookup({"table": table}, tspec,
+                                     torch.from_numpy(idx))
+    (got,) = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), [table])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want["table"]),
+                               rtol=1e-6, atol=1e-7)
+    assert not got[sum(VOCABS):].any()
+

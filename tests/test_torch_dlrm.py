@@ -4,7 +4,7 @@ Parameters come from ``repro.models.recsys.init_params`` and are carried
 into the port with ``convert.params_from_numpy`` (the two frameworks' random
 streams differ), so both packages score the same model on the same
 batches.  Scores must agree within rtol = atol = 1e-5 in f32, for each
-ported substrate (robe, qrobe, hashed, tt) and on both serve paths
+ported substrate (full, robe, qrobe, hashed, tt) and on both serve paths
 (``use_kernel`` True: the fused serve op where the substrate has one;
 False: lookup -> concat -> dot interaction), on the CPU where the port runs
 its plain versions.  The configs, the data streams and the server's ``n_valid``
@@ -37,7 +37,7 @@ from repro_torch.serve.server import EmbeddingServer, ServerConfig
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("dlrm-rm2", "dlrm-criteo-tb")
-EMBEDDINGS = ("robe", "qrobe", "hashed", "tt")
+EMBEDDINGS = ("full", "robe", "qrobe", "hashed", "tt")
 
 
 def _configs(arch: str, use_kernel: bool, embedding: str = "robe"):
@@ -138,10 +138,23 @@ def test_server_scores_match_jax_and_slice_to_n_valid(embedding):
 
 def test_server_refuses_what_is_not_ported():
     kw = dict(vocab_sizes=(100, 50), embed_dim=8, cache_capacity=0)
-    with pytest.raises(KeyError, match="not yet ported"):
-        EmbeddingServer(ServerConfig(backends=("full",), **kw), device="cpu")
+    # full serves now, and the default backends are the JAX package's
     srv = EmbeddingServer(ServerConfig(**kw), device="cpu")
+    assert srv.backends == JServerConfig(vocab_sizes=(100, 50)).backends \
+        == ("full", "robe", "hashed", "tt")
+    batch = _batch(srv.recsys_config("full"), 4, seed=1)
+    assert srv.score("full", {k: batch[k] for k in ("dense", "sparse")}
+                     ).shape == (4,)
+    with pytest.raises(KeyError, match="unknown embedding backend"):
+        EmbeddingServer(ServerConfig(backends=("dense",), **kw),
+                        device="cpu")
     assert get_backend("robe").cacheable_rows is None   # robe declines it
+    spec = srv.recsys_config("full").embedding_spec()
+    for fn in (lambda: get_backend("full").lookup_dist(
+                   srv.params("full")["embedding"], spec, None),
+               lambda: get_backend("full").param_specs(spec, {})):
+        with pytest.raises(NotImplementedError, match="module item 6"):
+            fn()
     with pytest.raises(NotImplementedError):
         srv.push("robe")
     with pytest.raises(NotImplementedError):

@@ -68,7 +68,7 @@ TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=1e-2, atol=1e-2)}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 VOCABS = (40, 24, 64)
-KINDS = ("qrobe", "hashed", "tt")
+KINDS = ("full", "qrobe", "hashed", "tt")
 
 
 @pytest.fixture(autouse=True)

@@ -510,11 +510,18 @@ def test_run_loop_matches_jax_bookkeeping():
     assert int(tr.state["step"]) == 12
 
 
-def test_what_is_not_ported_raises():
-    _, (ts, tstep), _ = _train_pair("dlrm-rm2", dict(kind="sgd"), {})
-    with pytest.raises(NotImplementedError, match="module item 2"):
-        ttl.run(ts, tstep, lambda s: {}, 1, ttl.TrainConfig(),
-                ckpt_dir="/nonexistent")
+def test_what_is_not_ported_raises(tmp_path):
+    (_, _), (ts, tstep), cfg = _train_pair("dlrm-rm2", dict(kind="sgd"), {})
+    # checkpoints are ported: run with ckpt_dir saves at the end, and a
+    # restore onto shardings waits for distribution
+    rep = ttl.run(ts, tstep, lambda s: _batch(cfg, 8, seed=1, step=s), 2,
+                  ttl.TrainConfig(), ckpt_dir=str(tmp_path))
+    assert rep.steps_done == 2 and rep.restarts == 0
+    from repro_torch.train import checkpoint as tck
+    got, man = tck.restore_latest(str(tmp_path), rep.state)
+    assert man["step"] == 2 and int(got["step"]) == 2
+    with pytest.raises(NotImplementedError, match="module item 6"):
+        tck.restore_latest(str(tmp_path), rep.state, shardings={})
     opt = topt.make_optimizer(topt.OptimizerConfig(kind="sgd"))
     for fn in (lambda c: ttl.build_train_step(None, opt, c),
                lambda c: ttl.init_state(ts["params"], opt, c)):
