@@ -132,11 +132,35 @@ non-zero on failure:
    CPU fed the same host rows through ``"emb"``), ``score`` at B=512 and
    B=262,144 in turns (robe, full, full, robe), a ``torch.profiler``
    breakdown of each at B=262,144, and the phase's peak device memory;
+   then (f) the serving tier: on (e)'s tensors, a server of full, hashed
+   (its own init) and robe with a 16,384-row ``HotRowCache`` in front of
+   full and hashed, warmed on zipf-1.05 traffic (hashed's misses launch
+   ``qr_lookup``, nothing else launches); cached scores ``np.array_equal``
+   to uncached ones for full and hashed on four padded batches of 512,
+   every resident row equal to the card's lookup of its id, ``score``
+   cached against uncached at B=512 in turns with the hit rates; the
+   replay (``run_grid``: full, hashed, robe × deadline, fixed on the JAX
+   grid's trace, 4,096 requests at 2,000 Hz, 25 ms, batches of 32, on the
+   measured card scorer; the zipf-4.0 control; one ``max_batch`` = 512
+   row a backend at 70% of the capacity its B=512 ``score`` gives), each
+   cell's launches; one ``AsyncRouter`` pass of 320 requests on hashed,
+   each batch's scores equal to ``score`` of the same padded batch; then,
+   with the 52 GB table freed, at full ``dlrm-criteo-tb`` width, the
+   online push drill (``OnlineTrainer``, adagrad, B=65,536, 24 steps, a
+   publish every 8 on a stream drifting every 8; a second server pushes
+   each publish): on hashed with the cache, after every push the server's
+   params ``torch.equal`` to the trainer's, the surviving cache rows equal
+   to the new params' lookup, cached scores equal to uncached ones, then
+   ``run_push_cell``; the same drill on robe without a cache; and a
+   ``ReplicaFleet`` of 4 hashed replicas (``run_fleet_cell``, and
+   ``run_fleet_push_cell`` staggered and synchronized with the drill's
+   publishes); the phase's peak device memory;
 6. one JSON line of kernel numbers, then, last, the ok line.
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import itertools
 import json
@@ -190,9 +214,16 @@ from repro_torch.nn.embedding_backends.hashed import (default_buckets,
                                                       qr_layout)
 from repro_torch.nn.embedding_backends.qrobe import GROUP_LOG2
 from repro_torch.nn.embedding_backends.tt import factor_dim, factor_rows
+from repro_torch.serve.fleet import ReplicaFleet
+from repro_torch.serve.replay import (ReplayConfig, run_cell,
+                                      run_fleet_cell, run_fleet_push_cell,
+                                      run_grid, run_push_cell)
+from repro_torch.serve.router import (AsyncRouter, DeadlineBatcher,
+                                      RouterConfig, stack_and_pad)
 from repro_torch.serve.server import EmbeddingServer, ServerConfig
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.metrics import auc
+from repro_torch.train.online import OnlineConfig, OnlineTrainer
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
 from repro_torch.train.train_loop import (TrainConfig, build_train_step,
                                           init_state, run)
@@ -270,6 +301,25 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAULT = 12, 4, 9
 RM2_DIM, RM2_BOT, RM2_TOP = 64, (512, 256, 64), (512, 512, 256, 1)
 RM2_ROWS = 204_185_088
 CACHE_CHECK_BATCH = 4096
+#: (f) the serving tier: hot-row caches of 16,384 rows warmed on 64
+#: batches of 256 requests; zipf 1.05 traffic and the 4.0 control; the
+#: JAX package's serving grid trace (4,096 requests at 2,000 Hz, a 25 ms
+#: deadline, batches of 32: benchmarks/table4_inference_throughput.py);
+#: one row a backend at max_batch 512 offered BIG_LOAD of the capacity its
+#: B=512 score gives; the router's pass; the online drill's steps,
+#: publishes and drift; the fleet's replicas
+CACHE_ROWS, WARM_BATCHES = 16384, 64
+ZIPF, ZIPF_CONTROL = 1.05, 4.0
+GRID = ReplayConfig(n_requests=4096, rate_hz=2000.0, deadline_s=0.025,
+                    max_batch=32, max_wait_s=0.050)
+BIG_BATCH, BIG_LOAD, BIG_REQUESTS = 512, 0.7, 16384
+ROUTER_REQUESTS = 320
+ONLINE_STEPS, PUBLISH_EVERY, DRIFT_PERIOD = 24, 8, 8
+#: the restart drill's rate: OnlineTrainer's default (adagrad at 0.05)
+#: moves every weight by 0.05 on its first step, which at full width sends
+#: the next loss past 1e6
+ONLINE_LR = 1e-3
+FLEET_REPLICAS = 4
 #: the backwards of the compressed substrates' lookups and of serve_fused
 #: (composed of robe_lookup, dot_interaction_bwd and robe_lookup_bwd)
 SUBSTRATE_BWD = ("qrobe_lookup_bwd", "qr_lookup_bwd", "tt_lookup_bwd",
@@ -1044,10 +1094,11 @@ def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def padded_batches(n_valids, size: int) -> list:
+def padded_batches(n_valids, size: int, vocabs=CRITEO_TB_VOCABS,
+                   n_dense: int = 13) -> list:
     """Padded request batches from ``RequestStream``: (batch, n_valid)."""
-    stream = RequestStream(CtrDataConfig(vocab_sizes=CRITEO_TB_VOCABS,
-                                         n_dense=13, batch_size=size,
+    stream = RequestStream(CtrDataConfig(vocab_sizes=vocabs,
+                                         n_dense=n_dense, batch_size=size,
                                          seed=SEED))
     out = []
     for k, n in enumerate(n_valids):
@@ -1699,7 +1750,7 @@ def rm2_server_config() -> ServerConfig:
                         seed=SEED)
 
 
-def full_vs_robe() -> dict:
+def full_vs_robe() -> tuple:
     """(e): one ``EmbeddingServer`` holding full and robe at dlrm-rm2 width,
     both on the unfused path.  full's device lookup must equal its
     ``cacheable_rows`` bit for bit on a zipf batch; each path answers four
@@ -1710,7 +1761,8 @@ def full_vs_robe() -> dict:
     cache's route: the 52 GB table never leaves the card), robe's the CPU
     run of the same entry point.  Then ``score`` is timed at B=512 (median
     of 21) and B=262,144 in turns (robe, full, full, robe), profiled at
-    B=262,144, and the card's peak memory of the phase is read."""
+    B=262,144, and the card's peak memory of the phase is read.  Returns
+    (results, server): the serving tier's phase reuses the server."""
     torch.cuda.reset_peak_memory_stats()
     cfg = rm2_server_config()
     t0 = time.perf_counter()
@@ -1795,6 +1847,402 @@ def full_vs_robe() -> dict:
             for kind in ("robe", "full")}
     res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print(json.dumps({"full_vs_robe_dlrm_rm2": res}))
+    return res, srv
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (f): the serving tier on the card
+# ---------------------------------------------------------------------------
+
+def tier_server(base: EmbeddingServer) -> EmbeddingServer:
+    """The serving tier's server at ``base``'s widths: ``full`` and ``robe``
+    on ``base``'s tensors (no copy of the 52 GB table), ``hashed`` from its
+    own init, and a ``HotRowCache`` of CACHE_ROWS rows in front of full and
+    hashed."""
+    cfg = dataclasses.replace(base.cfg, backends=("full", "hashed", "robe"),
+                              cache_capacity=CACHE_ROWS)
+    gen = torch.Generator(device=base.device)
+    gen.manual_seed(SEED + 2)
+    params = {"full": base.params("full"), "robe": base.params("robe"),
+              "hashed": init_params(cfg.recsys_cfg("hashed"), gen,
+                                    base.device)}
+    return EmbeddingServer(cfg, params=params, device=base.device)
+
+
+def zipf_batches(cfg: ServerConfig, b: int, n: int, start: int) -> list:
+    """``n`` distinct [b]-request batches of zipf-1.05 traffic, full
+    (n_valid = b)."""
+    stream = CtrStream(CtrDataConfig(vocab_sizes=cfg.vocab_sizes,
+                                     n_dense=cfg.n_dense, batch_size=b,
+                                     zipf_exponent=ZIPF, seed=SEED + 7))
+    out = []
+    for k in range(n):
+        raw = stream.batch_at(start + k)
+        out.append({"dense": raw["dense"], "sparse": raw["sparse"]})
+    return out
+
+
+def check_resident(srv: EmbeddingServer, kind: str) -> int:
+    """Every row resident in ``kind``'s cache equals, bit for bit, the
+    card's lookup of its id through the uncached path's shape (all fields
+    of a [n, F] batch at once; the id in its field's column).  Returns the
+    number of rows checked."""
+    cache = srv.cache(kind)
+    spec = srv.recsys_config(kind).embedding_spec()
+    keys = np.fromiter(cache._rows.keys(), np.int64, count=len(cache._rows))
+    fields = np.searchsorted(spec.offsets, keys, side="right") - 1
+    params = srv.params(kind)["embedding"]
+    with torch.inference_mode():
+        for f in np.unique(fields):
+            sel = keys[fields == f]
+            idx = np.zeros((sel.size, spec.n_fields), np.int32)
+            idx[:, f] = sel - spec.offsets[f]
+            got = get_backend(kind).lookup(
+                params, spec, torch.from_numpy(idx).to(srv.device))
+            want = np.stack([cache._rows[int(g)] for g in sel])
+            require(np.array_equal(got[:, f].cpu().numpy(), want),
+                    f"{kind}: a resident cache row of field {f} differs "
+                    f"from the card's lookup of its id")
+    return int(keys.size)
+
+
+def median_score_ms(srv: EmbeddingServer, kind: str, batches,
+                    use_cache: bool = True) -> float:
+    """Median host-clock ``score`` of each of ``batches`` but the first
+    (a warm-up call), ms."""
+    srv.score(kind, batches[0], use_cache=use_cache)
+    per = []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        srv.score(kind, b, use_cache=use_cache)
+        per.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(per)
+
+
+def score_turns(srv: EmbeddingServer, kinds, reps: int = REPS) -> dict:
+    """``score`` at B=512 on distinct zipf batches (host clock, median of
+    ``reps``), uncached and cached in turns (off, on, on, off) for the
+    cached substrates, and each cached turn's hit rate:
+    {kind: {"uncached": [ms], "cached": [ms], "hit_rate": [...]}}."""
+    out = {}
+    for kind in kinds:
+        turns = (False, True, True, False) if srv.cache(kind) is not None \
+            else (False, False)
+        got = out[kind] = {"uncached": [], "cached": [], "hit_rate": []}
+        for turn, use in enumerate(turns):
+            batches = zipf_batches(srv.cfg, B_P99, reps + 1,
+                                   20_000 + 100 * turn)
+            srv.reset_cache_stats()
+            got["cached" if use else "uncached"].append(
+                median_score_ms(srv, kind, batches, use))
+            if use:
+                got["hit_rate"].append(srv.cache_stats(kind)["hit_rate"])
+    return out
+
+
+def cache_path(srv: EmbeddingServer) -> dict:
+    """The hot-row cache at dlrm-rm2 width: warm from zipf-1.05 traffic
+    (hashed's misses launch ``qr_lookup``, full's gather none of ours),
+    cached scores equal to uncached ones on four padded batches of 512 for
+    full and hashed, every resident row equal to the card's lookup, and
+    ``score`` timed cached against uncached."""
+    cfg = srv.cfg
+    warm = RequestStream(CtrDataConfig(
+        vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense, batch_size=256,
+        zipf_exponent=ZIPF, seed=SEED + 7)).id_batches(WARM_BATCHES,
+                                                         start_step=10_000)
+    reset_launches()
+    t0 = time.perf_counter()
+    srv.warm_caches(warm)
+    res = {"warm_s": time.perf_counter() - t0, "warm_launches":
+           launch_counts()}
+    c = res["warm_launches"]
+    require(c["qr_lookup"] > 0 and all(v == 0 for k, v in c.items()
+                                       if k != "qr_lookup"),
+            f"warming the caches launched {c}: hashed's misses must run "
+            f"qr_lookup, and nothing else may run")
+    batches = padded_batches((512, 512, 437, 512), B_P99, cfg.vocab_sizes,
+                             cfg.n_dense)
+    for kind in ("full", "hashed"):
+        reset_launches()
+        cached = [srv.score(kind, b, n) for b, n in batches]
+        c_on = launch_counts()
+        reset_launches()
+        direct = [srv.score(kind, b, n, use_cache=False) for b, n in batches]
+        c_off = launch_counts()
+        lookup = {"full": (), "hashed": ("qr_lookup",)}[kind]
+        require(c_on["dot_interaction"] == len(batches) and all(
+            v == 0 for k, v in c_on.items()
+            if k not in ("dot_interaction",) + lookup),
+                f"{kind}'s cached path launched {c_on}")
+        require(all(v == (len(batches) if k in ("dot_interaction",) + lookup
+                          else 0) for k, v in c_off.items()),
+                f"{kind}'s uncached path launched {c_off}")
+        for (_, n), a, b in zip(batches, cached, direct):
+            require(a.shape == (n,) and np.isfinite(a).all(),
+                    f"{kind}: cached scores of shape {a.shape}")
+            require(np.array_equal(a, b),
+                    f"{kind}: cached scores differ from uncached ones by "
+                    f"{np.abs(a - b).max()}")
+        res[f"{kind}_launches_cached"] = c_on
+        res[f"{kind}_launches_uncached"] = c_off
+        res[f"{kind}_resident_checked"] = check_resident(srv, kind)
+        res[f"{kind}_stats"] = srv.cache_stats(kind)
+    print(f"cache (dlrm-rm2): cached == uncached for full and hashed on "
+          f"{len(batches)} batches; hashed's cached launches "
+          f"{res['hashed_launches_cached']}")
+    res["score_ms"] = score_turns(srv, ("full", "hashed", "robe"))
+    return res
+
+
+def replay_rows(srv: EmbeddingServer, svc_ms: dict) -> dict:
+    """``run_grid`` cells (full, hashed, robe × deadline, fixed at zipf
+    1.05, the JAX grid's trace), the zipf-4.0 control for full and hashed,
+    and one ``max_batch`` = 512 row a backend at BIG_LOAD of the capacity
+    that ``svc_ms`` (its B=512 ``score``) gives, with no deadline: once a
+    batch's service exceeds the deadline, the deadline policy sheds every
+    later request as infeasible and observes no service again, so a
+    deadline row of a scorer slower than 25 ms measures that lock-out
+    (the grid rows show it), not latency at a load; each cell's
+    launches."""
+    rows = []
+    for kind in ("full", "hashed", "robe"):
+        for policy in ("deadline", "fixed"):
+            reset_launches()
+            row = run_grid(srv, policies=(policy,), zipfs=(ZIPF,),
+                           backends=(kind,), base=GRID,
+                           warm_batches=WARM_BATCHES)[0]
+            rows.append(dict(row, launches=launch_counts()))
+    for kind in ("full", "hashed"):
+        srv.reset_caches()
+        reset_launches()
+        row = run_cell(srv, kind, GRID, zipf=ZIPF_CONTROL,
+                       warm_batches=WARM_BATCHES)
+        rows.append(dict(row, launches=launch_counts()))
+    for kind in ("full", "hashed", "robe"):
+        capacity = BIG_BATCH / (svc_ms[kind] / 1e3)
+        cfg = dataclasses.replace(GRID, n_requests=BIG_REQUESTS,
+                                  rate_hz=BIG_LOAD * capacity,
+                                  deadline_s=None, max_batch=BIG_BATCH,
+                                  max_queue=4 * BIG_BATCH)
+        srv.reset_caches()
+        reset_launches()
+        row = run_cell(srv, kind, cfg, zipf=ZIPF, warm_batches=WARM_BATCHES)
+        rows.append(dict(row, capacity_qps=capacity, launches=launch_counts()))
+    for row in rows:
+        c = row["launches"]
+        need = {"full": ("dot_interaction",),
+                "hashed": ("qr_lookup", "dot_interaction"),
+                "robe": ("robe_lookup", "dot_interaction")}[row["backend"]]
+        require(row["completed"] > 0 and all(c[k] > 0 for k in need) and
+                all(v == 0 for k, v in c.items() if k not in need),
+                f"replay cell {row['backend']}/{row['policy']}/z"
+                f"{row['zipf']}/{row['max_batch']} launched {c} or completed "
+                f"nothing")
+        print("replay " + json.dumps({k: v for k, v in row.items()
+                                      if k != "launches"}))
+    return {"rows": rows}
+
+
+def router_path(srv: EmbeddingServer) -> dict:
+    """One asyncio pass of ROUTER_REQUESTS requests through ``AsyncRouter``
+    to hashed (max_batch 32, 2 ms close-out, no deadline): every request
+    completes, and each dispatched batch's scores equal ``score`` of the
+    same padded batch, uncached."""
+    cfg = srv.cfg
+    reqs = RequestStream(CtrDataConfig(
+        vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense, batch_size=256,
+        zipf_exponent=ZIPF, seed=SEED + 11)).requests(ROUTER_REQUESTS)
+    kind = "hashed"
+    fn = srv.score_fn(kind)
+    sizes = []
+
+    def score(batch, n_valid=None):
+        sizes.append(n_valid)
+        return fn(batch, n_valid=n_valid)
+
+    async def drive():
+        router = AsyncRouter(score, DeadlineBatcher(RouterConfig(
+            max_batch=32, max_queue=4 * ROUTER_REQUESTS, max_wait_s=0.002)))
+        await router.start()
+        got = await asyncio.gather(*[router.submit(r) for r in reqs])
+        await router.stop()
+        return got, router.dispatched_batches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    got, n_batches = asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    c = launch_counts()
+    require(len(got) == len(reqs) and sum(sizes) == len(reqs) and
+            n_batches == len(sizes),
+            f"router: {len(got)} of {len(reqs)} requests answered in "
+            f"{n_batches} batches")
+    got = np.asarray(got, np.float32)
+    require(np.isfinite(got).all(), "router: non-finite scores")
+    k = 0
+    for n in sizes:
+        batch, nv = stack_and_pad(reqs[k:k + n], 32)
+        want = srv.score(kind, batch, nv, use_cache=False)
+        require(np.array_equal(got[k:k + n], want),
+                f"router: a batch of {n} scored otherwise than score() of "
+                f"the same padded batch")
+        k += n
+    require(c["qr_lookup"] > 0 and c["dot_interaction"] == n_batches,
+            f"router: launches {c}")
+    res = {"requests": len(reqs), "batches": n_batches, "wall_s": wall,
+           "mean_batch": len(reqs) / n_batches, "launches": c}
+    print("router " + json.dumps(res))
+    return res
+
+
+def online_drill(cfg: ServerConfig, kind: str, pub: str,
+                 cache: bool = True) -> dict:
+    """``OnlineTrainer`` on ``kind`` at ``cfg``'s widths (adagrad at
+    ONLINE_LR, B_TRAIN, ONLINE_STEPS steps, a publish every
+    PUBLISH_EVERY on a stream drifting every DRIFT_PERIOD steps), a second
+    server pushing each publish.  After
+    every push: the server's params ``torch.equal`` to the trainer's, every
+    surviving cache row equal to the new params' lookup, and (after a warm
+    pass on the current phase's traffic) cached scores equal to uncached
+    ones on a probe batch of 512."""
+    scfg = dataclasses.replace(cfg, backends=(kind,), model_dir=pub,
+                               cache_capacity=CACHE_ROWS if cache else 0)
+    srv = EmbeddingServer(scfg, device="cuda")
+    data = dict(vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense,
+                drift_period=DRIFT_PERIOD, seed=SEED)
+    trainer = OnlineTrainer(
+        srv.recsys_config(kind), CtrStream(CtrDataConfig(
+            batch_size=B_TRAIN, **data)),
+        OnlineConfig(publish_dir=pub, publish_every=PUBLISH_EVERY),
+        optimizer=make_optimizer(OptimizerConfig(kind="adagrad",
+                                                 lr=ONLINE_LR)),
+        device="cuda", seed=SEED + 5)
+    probe = CtrStream(CtrDataConfig(batch_size=B_P99, **data))
+    log = []
+
+    def on_publish(rec):
+        rep = srv.push(kind, step=rec.step)
+        for a, b in zip(leaves(srv.params(kind)),
+                        leaves(trainer.state["params"])):
+            require(a.device == b.device and torch.equal(a, b),
+                    f"{kind} drill: the pushed params at step {rec.step} "
+                    f"differ from the trainer's")
+        entry = {"step": rec.step, "publish": rec.kind,
+                 "publish_s": rec.wall_s, "n_changed": rec.n_changed,
+                 "n_touched": rec.n_touched, **dataclasses.asdict(rep)}
+        # the probe batch drifts with the stream (CtrStream phases by step)
+        raw = probe.batch_at(rec.step)
+        b = {"dense": raw["dense"], "sparse": raw["sparse"]}
+        if cache:
+            entry["survivors_checked"] = check_resident(srv, kind)
+            srv.cache(kind).warm([probe.batch_at(rec.step + k)["sparse"]
+                                  for k in range(1, 9)])
+            on = srv.score(kind, b)
+            off = srv.score(kind, b, use_cache=False)
+            require(np.array_equal(on, off),
+                    f"{kind} drill: cached scores differ from uncached ones "
+                    f"after the push at step {rec.step}")
+            entry["resident_after_warm"] = len(srv.cache(kind)._rows)
+        else:
+            on = srv.score(kind, b)
+        require(on.shape == (B_P99,) and np.isfinite(on).all(),
+                f"{kind} drill: scores after the push at step {rec.step}")
+        log.append(entry)
+        print(f"push {kind} " + json.dumps(entry))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = trainer.run(ONLINE_STEPS, on_publish=on_publish)
+    torch.cuda.synchronize()
+    c = launch_counts()
+    res = {"kind": kind, "batch": B_TRAIN, "steps": ONLINE_STEPS,
+           "run_s": time.perf_counter() - t0, "pushes": log,
+           "losses": rep.losses, "launches": c}
+    require(rep.steps_done == ONLINE_STEPS and rep.restarts == 0 and
+            rep.nan_events == 0 and np.isfinite(rep.losses).all(),
+            f"{kind} drill: {rep.steps_done} steps, {rep.restarts} restarts, "
+            f"{rep.nan_events} non-finite losses")
+    require([p.step for p in rep.publishes] ==
+            list(range(0, ONLINE_STEPS + 1, PUBLISH_EVERY)) and
+            len(log) == len(rep.publishes),
+            f"{kind} drill: publishes {[p.step for p in rep.publishes]}")
+    require(all(c[k] >= ONLINE_STEPS for k in TRAIN_KERNELS[kind]),
+            f"{kind} drill: a training kernel of {TRAIN_KERNELS[kind]} "
+            f"launched fewer than {ONLINE_STEPS} times: {c}")
+    if cache:
+        srv.reset_caches()
+        row = run_push_cell(srv, kind, GRID, publish_dir=pub,
+                            push_steps=[p.step for p in rep.publishes],
+                            zipf=ZIPF, drift_period=2,
+                            warm_batches=WARM_BATCHES)
+        require(row["pushes"] == len(rep.publishes) - 1 and
+                row["completed"] > 0, f"{kind} push cell: {row}")
+        res["push_cell"] = row
+        print("push cell " + json.dumps(row))
+    return res
+
+
+def fleet_path(cfg: ServerConfig, pub: str, push_steps) -> dict:
+    """``ReplicaFleet`` of FLEET_REPLICAS hashed replicas (cache on):
+    ``run_fleet_cell``, then ``run_fleet_push_cell`` staggered and
+    synchronized on the same trace with the drill's publishes.  The trace
+    is the grid's, FLEET_REPLICAS times as long, offered BIG_LOAD of the
+    fleet's capacity (from replica 0's warm cached ``score`` of batches of
+    32), with no deadline (``replay_rows`` says why)."""
+    kind = "hashed"
+    fcfg = dataclasses.replace(cfg, backends=(kind,), model_dir=pub,
+                               cache_capacity=CACHE_ROWS)
+    fleet = ReplicaFleet(fcfg, n_replicas=FLEET_REPLICAS, device="cuda")
+    probe = fleet.replicas[0]
+    probe.warm_caches(RequestStream(CtrDataConfig(
+        vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense, batch_size=256,
+        zipf_exponent=ZIPF, seed=SEED + 7)).id_batches(WARM_BATCHES,
+                                                         start_step=10_000))
+    svc_ms = median_score_ms(probe, kind, zipf_batches(
+        fcfg, GRID.max_batch, REPS + 1, 30_000))
+    fleet.reset_caches()
+    capacity = FLEET_REPLICAS * GRID.max_batch / (svc_ms / 1e3)
+    rcfg = dataclasses.replace(GRID, n_requests=FLEET_REPLICAS *
+                               GRID.n_requests,
+                               rate_hz=BIG_LOAD * capacity, deadline_s=None)
+    rows = []
+    reset_launches()
+    rows.append(dict(run_fleet_cell(fleet, kind, rcfg, zipf=ZIPF,
+                                    warm_batches=WARM_BATCHES),
+                     launches=launch_counts()))
+    for staggered in (True, False):
+        reset_launches()
+        row = run_fleet_push_cell(fleet, kind, rcfg, publish_dir=pub,
+                                  push_steps=push_steps, staggered=staggered,
+                                  zipf=ZIPF, warm_batches=WARM_BATCHES)
+        rows.append(dict(row, launches=launch_counts()))
+        require(fleet.pushed_steps(kind) == [push_steps[-1]] * FLEET_REPLICAS,
+                f"fleet: replicas at {fleet.pushed_steps(kind)}")
+    for row in rows:
+        row["capacity_qps"] = capacity
+        c = row["launches"]
+        require(row["completed"] > 0 and row["n_replicas"] == FLEET_REPLICAS
+                and c["qr_lookup"] > 0 and
+                c["dot_interaction"] > 0,
+                f"fleet cell {row.get('push_mode', 'plain')}: {row}")
+        print("fleet " + json.dumps({k: v for k, v in row.items()
+                                     if k != "launches"}))
+    return {"rows": rows}
+
+
+def rm2_tier(base: EmbeddingServer) -> dict:
+    """(f), first half, at ``base``'s dlrm-rm2 widths: the cache
+    (``cache_path``), the replay rows (``replay_rows``, the B=512 rows'
+    capacity from the cached ``score`` times, uncached for robe) and the
+    router (``router_path``).  The tier server is freed on return."""
+    srv = tier_server(base)
+    res = {"cache": cache_path(srv)}
+    times = res["cache"]["score_ms"]
+    svc = {k: statistics.mean(v["cached"] or v["uncached"])
+           for k, v in times.items()}
+    res["replay"] = replay_rows(srv, svc)
+    res["router"] = router_path(srv)
     return res
 
 
@@ -2300,9 +2748,32 @@ def main() -> int:
     del fused, unfused, subs, paths, train_params, memory
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    full_vs_robe()
+    _, rm2 = full_vs_robe()
     print(f"full against robe ok ({time.perf_counter() - t0:.1f} s); peak "
           f"memory of the earlier phases {peak} B")
+
+    # (f) the serving tier: at dlrm-rm2 width on (e)'s server, then, with
+    # the 52 GB table freed, the online drills and the fleet at full width
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tier = rm2_tier(rm2)
+    tier["rm2_s"] = time.perf_counter() - t0
+    del rm2
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tier["online_hashed"] = online_drill(cfg, "hashed",
+                                             str(Path(tmp) / "hashed"))
+        tier["online_robe"] = online_drill(cfg, "robe",
+                                           str(Path(tmp) / "robe"),
+                                           cache=False)
+        tier["fleet"] = fleet_path(cfg, str(Path(tmp) / "hashed"),
+                                   [p["step"] for p in
+                                    tier["online_hashed"]["pushes"]])
+    tier["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    tier["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"serving_tier": tier, "card": smi}))
+    print(f"serving tier ok ({tier['wall_s']:.1f} s); peak memory of the "
+          f"phase {tier['max_memory_allocated']} B")
 
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],

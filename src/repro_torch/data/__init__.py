@@ -1,6 +1,6 @@
 """Synthetic data streams (numpy; PyTorch port of ``repro.data``)."""
 
 from repro_torch.data.synthetic_ctr import (CtrDataConfig, CtrStream,
-                                            RequestStream)
+                                            RequestStream, poisson_arrivals)
 
-__all__ = ["CtrDataConfig", "CtrStream", "RequestStream"]
+__all__ = ["CtrDataConfig", "CtrStream", "RequestStream", "poisson_arrivals"]

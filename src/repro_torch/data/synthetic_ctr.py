@@ -126,6 +126,23 @@ class CtrStream:
         return batch
 
 
+def poisson_arrivals(rate_hz: float, n: int, seed: int = 0) -> np.ndarray:
+    """Open-loop Poisson arrival process: ``n`` cumulative arrival times
+    (seconds, starting after t=0) at ``rate_hz`` mean offered load.
+
+    Deterministic in (rate, n, seed), the same floats as the JAX
+    package's: the serving replay's virtual timeline
+    (``repro_torch.serve.replay``) depends on replayable arrivals the way
+    ``batch_at`` depends on (seed, step).  Open-loop means arrivals never
+    wait on completions: offered load is a property of the trace, not of
+    the server.
+    """
+    if rate_hz <= 0:
+        raise ValueError(f"rate_hz must be positive, got {rate_hz}")
+    rs = np.random.RandomState(seed % 2 ** 31)
+    return np.cumsum(rs.exponential(1.0 / rate_hz, size=n))
+
+
 class RequestStream:
     """Per-request view over ``CtrStream``: request ``i`` is row
     ``i % batch_size`` of ``batch_at(i // batch_size)`` with the label

@@ -37,6 +37,12 @@ class EmbeddingBackend:
     #: optional serving-tier hot-row-cache hook, ``cacheable_rows(params,
     #: spec, field, ids) -> [n, dim]``; ``None`` declines the cache
     cacheable_rows = None
+    #: optional push-invalidation companion to ``cacheable_rows``,
+    #: ``affected_rows(spec, field, touched_ids, candidate_ids) -> bool
+    #: mask over candidates``: which cached rows a training update of the
+    #: touched ids changed, for a backend whose stored rows are shared
+    #: across ids; ``None`` means exact id match
+    affected_rows = None
     #: optional post-optimizer projection hook, ``project(params, spec)``;
     #: ``None`` means the parameters are their own representation
     project = None

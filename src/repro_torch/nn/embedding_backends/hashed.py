@@ -12,8 +12,11 @@ lookups are local.  A lookup runs the ``qr_lookup`` op: on the card the
 Hopper kernel computes the indices, both gathers and the product in one
 pass.  ``m`` defaults to the power of two nearest √(max vocab).
 
-The hot-row-cache hooks (``cacheable_rows``, ``affected_rows``) come with
-the port's serving tier.
+The serving tier's hot-row cache fronts it: ``cacheable_rows`` hands the
+cache the composed rows of the asked ids through the same lookup (on the
+card, the ``qr_lookup`` kernel on the tables' device; only those rows
+come to the host), and ``affected_rows`` widens a push's invalidation to
+the ids that share a quotient or remainder bucket with a trained one.
 """
 
 from __future__ import annotations
@@ -77,6 +80,33 @@ class HashedBackend(EmbeddingBackend):
         return qr_lookup(params["q_table"], params["r_table"], idx,
                          tuple(int(q_off[f]) for f in fields),
                          tuple(int(r_off[f]) for f in fields), m)
+
+    def cacheable_rows(self, params, spec, field: int,
+                       ids: np.ndarray) -> np.ndarray:
+        """Hot-row-cache hook: the composed rows Q[x//m] * R[x%m] of
+        ``ids`` in ``field``, as host f32.  They come from ``lookup`` on
+        the tables' device (one ``qr_lookup`` launch on the card), so they
+        are the rows the uncached lookup computes, bit for bit; only the
+        asked rows are copied to the host.  Caching the *composed* row
+        also skips the recomposition multiply on every hot hit."""
+        q = params["q_table"]
+        idx = torch.as_tensor(np.asarray(ids, np.int64).astype(np.int32),
+                              device=q.device)[:, None]
+        with torch.no_grad():
+            rows = self.lookup(params, spec, idx, fields=(field,))
+        return rows[:, 0].cpu().numpy()
+
+    def affected_rows(self, spec, field: int, touched: np.ndarray,
+                      candidates: np.ndarray) -> np.ndarray:
+        """Push-invalidation hook: training id x moves bucket rows
+        Q[x//m] and R[x%m], so every candidate sharing a quotient OR
+        remainder bucket with a touched id has a changed composed row —
+        exact-id invalidation would leave those cache entries stale."""
+        m = _m(spec)
+        t = np.asarray(touched, np.int64).ravel()
+        c = np.asarray(candidates, np.int64).ravel()
+        return (np.isin(c // m, np.unique(t // m))
+                | np.isin(c % m, np.unique(t % m)))
 
     def param_count(self, spec) -> int:
         m = _m(spec)

@@ -1,3 +1,4 @@
 """Training (PyTorch port of ``repro.train``): optimizers, the train-step
-builder and run loop, checkpoints and metrics.  Gradient compression,
-online training and elastic re-slice are not yet ported."""
+builder and run loop, checkpoints, metrics, the online trainer and the
+fault-injection harness (``elastic``'s ``FaultClock``/``FaultPlan``).
+Gradient compression and the mesh re-slice are not yet ported."""

@@ -155,10 +155,12 @@ def test_server_refuses_what_is_not_ported():
                lambda: get_backend("full").param_specs(spec, {})):
         with pytest.raises(NotImplementedError, match="module item 6"):
             fn()
-    with pytest.raises(NotImplementedError):
+    # push and warm_caches are ported (the serving tier): a push needs a
+    # publish dir, and warming a server without caches does nothing
+    with pytest.raises(ValueError, match="model_dir"):
         srv.push("robe")
-    with pytest.raises(NotImplementedError):
-        srv.warm_caches([])
+    srv.warm_caches([batch["sparse"]])
+    assert all(srv.cache(b) is None for b in srv.backends)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         trec.init_params(dataclasses.replace(
             srv.recsys_config("robe"), arch="autoint"),

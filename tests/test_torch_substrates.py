@@ -233,10 +233,14 @@ def test_cost_model_shape(kind):
 
 
 def test_cacheable_rows_hooks():
-    """``full`` serves the hot-row cache; robe, qrobe and tt decline it
-    (hashed's hook comes with the serving tier)."""
-    assert callable(get_backend("full").cacheable_rows)
-    for kind in ("robe", "qrobe", "tt", "hashed"):
+    """``full`` and ``hashed`` serve the hot-row cache (hashed also widens
+    a push's invalidation with ``affected_rows``); robe, qrobe and tt
+    decline it."""
+    for kind in ("full", "hashed"):
+        assert callable(get_backend(kind).cacheable_rows)
+    assert callable(get_backend("hashed").affected_rows)
+    assert get_backend("full").affected_rows is None
+    for kind in ("robe", "qrobe", "tt"):
         assert get_backend(kind).cacheable_rows is None
 
 
