@@ -18,8 +18,14 @@ non-zero on failure:
    ``dot_interaction``, ``serve_fused`` and ``tt_lookup`` within
    rtol = atol = 1e-5 in f32 and 1e-2 in bf16; ``robe_lookup`` and
    ``qrobe_lookup`` in every regime of their block hash
-   (``ROBE_REGIMES``), f32 and bf16, the sign on and off, B in 1, 509,
-   512, with a row of 2^31 - 1, ``qrobe_lookup`` without and with a
+   (``ROBE_REGIMES``, the recsys family's (10, 32) and (256, 32) among
+   them), f32 and bf16, the sign on and off, B in 1, 509,
+   512, with a row of 2^31 - 1, ``robe_lookup`` also at phase (g)'s
+   shapes (``family_lookups``: F = 39 on the 337,634- and 540,214-slot
+   arrays of xDeepFM and AutoInt, the two-tower's 8 fields at d = 256 and
+   its item fields alone at table ids (4, 5, 6, 7), the Table-3 models' 8
+   fields on 3,222 slots, and xDeepFM's array under a zipf batch of
+   65,536 x 39), ``qrobe_lookup`` without and with a
    nonzero ``delta``, and also on rows that cross the circular wrap at |M|
    inside the last, partial scale group; ``tt_lookup`` at
    full width, with cores off 16-byte alignment, and at ``TT_SHAPES``
@@ -39,7 +45,8 @@ non-zero on failure:
    cross the wrap at |M| and rows whose ROBE block straddles a band edge
    of the bucketed scatter, on a cotangent with the strides autograd hands
    over, and on the quickstart's 18,400-slot array (d = 16, Z = 32) under
-   a batch of 1,024 of its stream; ``qrobe_lookup_bwd`` (the scales' and
+   a batch of 1,024 of its stream, and at phase (g)'s shapes as the
+   forward; ``qrobe_lookup_bwd`` (the scales' and
    delta's gradients) at every ``ROBE_REGIMES`` (d, Z) and B in 1, 509,
    512, on the zipf batch, on it with one field at a single row, on 65,536
    samples of all-distinct rows, on wrap rows, on rows whose line of slots
@@ -155,7 +162,25 @@ non-zero on failure:
    ``ReplicaFleet`` of 4 hashed replicas (``run_fleet_cell``, and
    ``run_fleet_push_cell`` staggered and synchronized with the drill's
    publishes); the phase's peak device memory;
-6. one JSON line of kernel numbers, then, last, the ok line.
+   before (e), (g) the rest of the recsys family (``recsys_family``), on
+   robe at 1000x with Z = 32: the registry's full ``autoint``
+   (540,214 slots), ``xdeepfm`` (337,634; its CIN a chunk of the batch at
+   a time) and ``two-tower-retrieval`` (28,726,016) bundles, and DCN,
+   DeepFM and FiBiNET at the Table-3 widths (``TABLE3``), each from its
+   own seeded init: ``serve_scores`` at B = 512 (padded) and 262,144 (the
+   two-tower: ``retrieval_batch``'s query against 4,096 and 1,000,000
+   candidates), launching robe_lookup once a call (retrieval twice) and
+   nothing else, the first within ``SCORE_TOL`` of the CPU; three adam
+   steps (lr 0.002) at B = 4,096 each shadowed by the CPU step from the
+   same state (losses within 2e-3, each leaf's gradient read by
+   ``UpdateErr`` as phase 3 reads its three SGD steps; adam's update read
+   beside it); five adagrad steps at B = 65,536 (the two-tower: 16,384)
+   with finite losses and one robe_lookup and one robe_lookup_bwd a step;
+   ``score`` and the step timed (host clock, median of 7) with the step's
+   device breakdown; robe_lookup and robe_lookup_bwd alone at each new
+   shape beside their bounds; each configuration's peak device memory;
+6. one JSON line of the recsys family's numbers, one of kernel numbers,
+   then, last, the ok line.
 """
 
 from __future__ import annotations
@@ -179,11 +204,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.configs.recsys_archs import CRITEO_TB_VOCABS
 from repro_torch.core.robe import (init_memory,
                                    robe_slots)
 from repro_torch.data import (CtrDataConfig, CtrStream,
-                              RequestStream)
+                              RequestStream, retrieval_batch)
 from repro_torch.kernels import (_build, dot_interaction_bwd_cuda,
                                  dot_interaction_cuda, launch_counts,
                                  qr_lookup_bwd_cuda, qr_lookup_cuda,
@@ -243,8 +269,11 @@ DI_ROWS = (1, 2, 4, 5, 8, 9, 28, 33, 64)
 DI_WIDTHS = (1, 3, 24, 40, 130)
 DI_BATCHES = (1, 31, 33, 509, 4099)
 #: robe_lookup's phase-2 regimes (d, Z): Z < d with d not a multiple of Z,
-#: Z = d, Z > d (rows share blocks), Z = 1, and full width
-ROBE_REGIMES = ((24, 16), (16, 16), (8, 32), (40, 1), (D, 32))
+#: Z = d, Z > d (rows share blocks), Z = 1, full width, and the recsys
+#: family's: xDeepFM's Z > d with d not dividing Z (an item spans two
+#: segments of the backward) and the two-tower's d = 256
+ROBE_REGIMES = ((24, 16), (16, 16), (8, 32), (40, 1), (D, 32), (10, 32),
+                (256, 32))
 #: tt_lookup's narrow phase-2 shapes (dim, rank): (2, 3, 4) at rank 4,
 #: (2, 3, 3) with d3 not a multiple of four, (1, 4, 4) with d1 = 1, and
 #: rank 3, which has no instance of its own
@@ -324,6 +353,27 @@ FLEET_REPLICAS = 4
 #: (composed of robe_lookup, dot_interaction_bwd and robe_lookup_bwd)
 SUBSTRATE_BWD = ("qrobe_lookup_bwd", "qr_lookup_bwd", "tt_lookup_bwd",
                  "serve_fused_bwd")
+#: (g) the rest of the recsys family on robe at 1000x, Z = 32: the
+#: registry's full autoint, xdeepfm and two-tower-retrieval bundles, and
+#: DCN, DeepFM and FiBiNET at the Table-3 widths the repo trains them at
+#: (benchmarks/common.py:22,36-54: BENCH_VOCABS, d = 16, |M| =
+#: max(512, rows * d // 1000)); Table 3's optimizer for these families
+#: (adam, lr 0.002: benchmarks/table3_kaggle_models.py) for the steps held
+#: against the CPU, adagrad at full batch
+BENCH_VOCABS = (50_000, 20_000, 80_000, 5_000, 30_000, 1_000, 15_000, 400)
+TABLE3 = {"dcn": dict(arch="dcn", cross_layers=3, dnn=(64, 64)),
+          "deepfm": dict(arch="deepfm", dnn=(64, 64)),
+          "fibinet": dict(arch="fibinet", dnn=(64, 64))}
+FAMILY = ("autoint", "xdeepfm", "two-tower-retrieval", *TABLE3)
+FAMILY_LR, FAMILY_ADAM_B, FAMILY_ADAM_STEPS = 0.002, 4096, 3
+FAMILY_STEPS, FAMILY_N_VALID = 5, 437
+#: two-tower trains at 16,384: its in-batch logits are B^2 f32, 1.07 GB
+#: there and 17.2 GB at 65,536 (and as much again in the softmax's
+#: backward)
+TWO_TOWER_B = 16384
+#: retrieval_cand (1 query, 10^6 candidates) and the CPU's check of it
+N_CAND, CPU_CAND = 1_000_000, 4096
+FAMILY_REPS = 7
 REPS = 21
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
 #: the H100 SXM data sheet's peaks
@@ -519,6 +569,18 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
                 f"{max_err(got, want)}")
         record("robe_lookup", got, want)
     del mems
+    # the recsys family's lookups (phase (g)), exactly equal too, both
+    # dtypes, the sign on and off (``family_lookups``)
+    for what, mem, idx, ids, dim, base in family_lookups(gen, dev):
+        for m, sign in itertools.product((mem, mem.to(torch.bfloat16)),
+                                         (False, True)):
+            sp = dataclasses.replace(base, use_sign=sign)
+            got = robe_lookup_cuda(m, idx, ids, dim, sp)
+            want = robe_lookup_ref(m, idx, ids, dim, sp)
+            require(torch.equal(got, want),
+                    f"robe_lookup {what} d={dim} sign={sign} {m.dtype}: "
+                    f"max err {max_err(got, want)}")
+            record("robe_lookup", got, want)
     torch.cuda.synchronize()
 
     # full width, then the ragged shapes of the register tiling: F rows not
@@ -972,8 +1034,8 @@ def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
     returns the scatter's largest |error| / A per dtype."""
     worst = {"float32": 0.0, "bfloat16": 0.0}
 
-    def robe_case(rows, g, sp, what):
-        tids = tuple(range(rows.shape[1]))
+    def robe_case(rows, g, sp, what, tids=None):
+        tids = tuple(range(rows.shape[1])) if tids is None else tids
         got = robe_lookup_bwd_cuda(g, rows, tids, g.shape[2], sp)
         want = robe_lookup_bwd_ref(g, rows, tids, g.shape[2], sp)
         a = robe_lookup_bwd_ref(g.abs(), rows, tids, g.shape[2],
@@ -1034,6 +1096,15 @@ def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
                         device=dev).to(dt)
         robe_case(qs_rows, g, dataclasses.replace(qs_spec, use_sign=sign),
                   f"quickstart B={qs_rows.shape[0]} sign={sign} {dt}")
+    # the recsys family's shapes (``family_lookups``): on arrays that fit
+    # in L2 a step's 2.6M items land on few slots
+    for what, _, idx, ids, dim, base in family_lookups(gen, dev):
+        for dt, sign in itertools.product((torch.float32, torch.bfloat16),
+                                          (False, True)):
+            g = torch.randn(tuple(idx.shape) + (dim,), generator=gen,
+                            device=dev).to(dt)
+            robe_case(idx, g, dataclasses.replace(base, use_sign=sign),
+                      f"{what} d={dim} sign={sign} {dt}", ids)
     del zipf, chain, distinct, g
     torch.cuda.synchronize()
 
@@ -2247,6 +2318,367 @@ def rm2_tier(base: EmbeddingServer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase (g): the rest of the recsys family
+# ---------------------------------------------------------------------------
+
+def family_config(name: str) -> RecsysConfig:
+    """Phase (g)'s configuration ``name``, on robe at 1000x with Z = 32."""
+    if name in TABLE3:
+        return RecsysConfig(
+            name=f"{name}-robe-z32", vocab_sizes=BENCH_VOCABS, embed_dim=16,
+            embedding="robe", robe_size=max(512, sum(BENCH_VOCABS) * 16
+                                            // 1000),
+            robe_block=32, **TABLE3[name])
+    return get_arch(name).make_config("full")
+
+
+def family_stream(cfg: RecsysConfig, b: int) -> CtrStream:
+    return CtrStream(CtrDataConfig(vocab_sizes=cfg.vocab_sizes,
+                                   batch_size=b, seed=SEED))
+
+
+def family_rows(cfg: RecsysConfig, b: int, dev, step: int = 0
+                ) -> torch.Tensor:
+    """Zipf ids [b, F] of the configuration's vocabularies."""
+    return torch.from_numpy(family_stream(cfg, b).batch_at(step)["sparse"]
+                            ).to(dev)
+
+
+def family_lookups(gen, dev) -> list:
+    """(what, memory, rows, table ids, dim, spec) of the ``robe_lookup``
+    shapes phase (g) runs, each on a fresh array of its configuration's
+    size: every array at B = 1, 509, 512 on zipf rows of its vocabularies
+    (F = 39 on xDeepFM's and AutoInt's arrays, 337,634 and 540,214 slots,
+    which fit in L2; the two-tower's 8 fields at d = 256 and its item
+    fields alone, table ids (4, 5, 6, 7); the Table-3 models' 8 fields on
+    3,222 slots), then xDeepFM's array (d = 10 < Z = 32, which d does not
+    divide) under a zipf batch of the training shape, 65,536 x 39."""
+    out, seen = [], set()
+    for name in FAMILY:
+        cfg = family_config(name)
+        spec = cfg.embedding_spec().robe
+        if (cfg.vocab_sizes, cfg.embed_dim, spec) in seen:
+            continue
+        seen.add((cfg.vocab_sizes, cfg.embed_dim, spec))
+        mem = init_memory(gen, spec, dev)
+        rows = family_rows(cfg, B_P99, dev)
+        sets = [(tuple(range(cfg.n_fields)), rows)]
+        if cfg.arch == "two_tower":
+            sets.append((tuple(range(cfg.n_user_fields, cfg.n_fields)),
+                         rows[:, cfg.n_user_fields:].contiguous()))
+        for ids, r in sets:
+            out += [(f"{name} F={len(ids)} tids {ids[0]}.. B={b}", mem,
+                     r[:b], ids, cfg.embed_dim, spec)
+                    for b in PHASE2_BATCHES]
+        if name == "xdeepfm":
+            out.append((f"{name} zipf B={B_TRAIN} F={cfg.n_fields}", mem,
+                        family_rows(cfg, B_TRAIN, dev, 1),
+                        tuple(range(cfg.n_fields)), cfg.embed_dim, spec))
+    return out
+
+
+def family_serve(cfg: RecsysConfig, params, cpu_params) -> dict:
+    """``serve_scores`` on the card: CTR models at B = 512 (a zipf batch
+    of ``CtrStream``, its rows past FAMILY_N_VALID zeroed as padding) and
+    B = 262,144; the two-tower's ``retrieval_batch`` query against
+    CPU_CAND and N_CAND candidates.  Each call launches robe_lookup once
+    (retrieval: twice, the query's fields and the candidates' item
+    fields) and no other kernel; its scores are finite, and the first
+    call's within SCORE_TOL of the CPU's from the same params.  Times:
+    host clock, median of FAMILY_REPS, the batch on the card and the
+    scores read back to the host."""
+    if cfg.arch == "two_tower":
+        rb = retrieval_batch(CtrDataConfig(vocab_sizes=cfg.vocab_sizes,
+                                           batch_size=B_P99, seed=SEED),
+                             0, cfg.n_user_fields, N_CAND)
+        cases = [(f"retrieval_{CPU_CAND}", dict(
+            rb, cand_sparse=rb["cand_sparse"][:CPU_CAND]), 1, 2),
+            (f"retrieval_{N_CAND}", rb, 1, 2)]
+    else:
+        small = family_stream(cfg, B_P99).batch_at(0)["sparse"]
+        small[FAMILY_N_VALID:] = 0
+        bulk = family_stream(cfg, B_BULK).batch_at(0)["sparse"]
+        cases = [(f"score_{B_P99}", {"sparse": small}, FAMILY_N_VALID, 1),
+                 (f"score_{B_BULK}", {"sparse": bulk}, B_BULK, 1)]
+    res = {}
+    for k, (label, host, n, launches) in enumerate(cases):
+        batch = {key: torch.from_numpy(v).to("cuda")
+                 for key, v in host.items()}
+        reset_launches()
+        got = serve_scores(params, cfg, batch)[:n].cpu()
+        c = launch_counts()
+        require(c["robe_lookup"] == launches and sum(c.values()) == launches,
+                f"{cfg.name} {label} launched {c}; expected robe_lookup "
+                f"{launches} times and no other kernel")
+        shape = (1, len(host["cand_sparse"])) if "cand_sparse" in host \
+            else (n,)
+        require(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
+                f"{cfg.name} {label}: scores of shape {tuple(got.shape)}, "
+                f"expected {shape}, or not finite")
+        row = {"launches": {kk: v for kk, v in c.items() if v}}
+        if k == 0:
+            want = serve_scores(cpu_params, cfg, {
+                key: torch.from_numpy(v) for key, v in host.items()})[:n]
+            row["cpu_max_diff"] = float((got - want).abs().max())
+            require(torch.allclose(got, want, rtol=SCORE_TOL, atol=SCORE_TOL),
+                    f"{cfg.name} {label}: card scores differ from the CPU "
+                    f"run by {row['cpu_max_diff']}")
+        row["ms"] = host_ms(lambda: serve_scores(params, cfg, batch)[:n].cpu(),
+                            reps=FAMILY_REPS)
+        res[label] = row
+        del batch, got
+    return res
+
+
+class ReluMasks(torch.overrides.TorchFunctionMode):
+    """Within it, every ReLU call records its decisions (x > 0) in call
+    order; given another run's decisions, it applies those instead: x *
+    mask, whose gradient is the mask, counting the decisions that differ
+    from its own (``flips``).  A CPU step in the card step's decisions is
+    the same function up to the inputs within rounding of 0, and its
+    backward takes the card's branch there: a ReLU input that falls on
+    the other side of 0 on the other device moves one sample's whole
+    backward (up to 1.7e-3 of a bias leaf's gradient at B = 4,096 on an
+    NVIDIA H100 80GB HBM3 at 700 W), which a reading of the step would
+    otherwise charge to the card."""
+
+    RELU = (torch.relu, torch.nn.functional.relu, torch.Tensor.relu)
+
+    def __init__(self, masks=None):
+        super().__init__()
+        self.replay = masks is not None
+        self.masks = [] if masks is None else masks
+        self.at, self.flips = 0, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in self.RELU:
+            return func(*args, **kwargs)
+        x = args[0]
+        if not self.replay:
+            self.masks.append((x > 0).cpu())
+            return func(*args, **kwargs)
+        m = self.masks[self.at].to(x.device)
+        self.at += 1
+        self.flips += int(((x > 0) != m).sum())
+        return x * m.to(x.dtype)
+
+
+def loss_grads(cfg: RecsysConfig, params, batch):
+    """``loss_fn``'s gradient of every param leaf (the robe models' leaves
+    are all float), in the params' tree."""
+    xs = [p.detach().requires_grad_(True) for p in leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(unflatten(params, xs), cfg, batch)[0]
+        return unflatten(params, list(torch.autograd.grad(loss, xs)))
+
+
+def family_adam(cfg: RecsysConfig, params) -> dict:
+    """FAMILY_ADAM_STEPS adam steps (lr FAMILY_LR) at B = FAMILY_ADAM_B
+    through ``run``, each card step shadowed by the CPU step from the same
+    state in the card step's ReLU decisions (``ReluMasks``; the decisions
+    that differ are counted): its loss within QS_LOSS_TOL, each param
+    leaf's update read by ``UpdateErr`` as phase 3 reads its three
+    full-width steps (at most UPDATE_FLAG_SHARE of the steps, rounded up,
+    with a leaf above UPDATE_TOL), and each leaf's gradient, card against
+    CPU, read as phase 3 reads its quickstart (each leaf's median within
+    UPDATE_MEDIAN_TOL too).  The median is not asked of adam's update:
+    its first steps move each element by about lr * g / (|g| + eps), so
+    an element whose gradient is near eps (1e-8) turns last-bit
+    differences of g into fractions of lr (90% of the two-tower's update
+    reading at its first step, 2.1e-4 of the norm, came from elements with
+    |g| < 1e-8, where its gradient read 1.5e-6; NVIDIA H100 80GB HBM3,
+    700 W)."""
+    opt = OptimizerConfig(kind="adam", lr=FAMILY_LR)
+    cpu_step = build_train_step(lambda p, b: loss_fn(p, cfg, b),
+                                make_optimizer(opt), TrainConfig())
+    start = to_device(params, "cpu")
+    grad, upd = UpdateErr(start), UpdateErr(start)
+    zero = tree_map(torch.zeros_like, start)
+    diffs, flips = [], []
+
+    def shadow(step_fn):
+        def step(state, batch):
+            old = to_device(state, "cpu")
+            host = to_device(batch, "cpu")
+            with ReluMasks() as rec:
+                g_card = loss_grads(cfg, state["params"], batch)
+            with ReluMasks(rec.masks) as rg:
+                g_cpu = loss_grads(cfg, old["params"], host)
+            grad.add(zero, g_card, g_cpu)
+            with ReluMasks() as rec:
+                state, m = step_fn(state, batch)
+                loss = float(m["loss"])
+            with ReluMasks(rec.masks) as rep_step:
+                want, wm = cpu_step(old, host)
+            diffs.append(abs(loss - float(wm["loss"])))
+            flips.append(rep_step.flips)
+            require(rg.at == rep_step.at == len(rec.masks) > 0,
+                    f"{cfg.name}: the CPU step made {rep_step.at} ReLU "
+                    f"calls, the card's {len(rec.masks)}")
+            upd.add(old["params"], state["params"], want["params"])
+            return state, m
+        return step
+    rep = train_run(cfg, params, opt,
+                    family_stream(cfg, FAMILY_ADAM_B).batch_at,
+                    FAMILY_ADAM_STEPS, shadow)
+    what = f"{cfg.name} adam B={FAMILY_ADAM_B}"
+    require(max(diffs) <= QS_LOSS_TOL,
+            f"{what}: a card step's loss differs from the CPU step's from "
+            f"the same state by {max(diffs)}")
+    g_read = grad.check(f"{what} gradient")
+    # three steps: their medians would be one step's reading
+    u_read = upd.check(f"{what} update", median=False)
+    keep = ("max_median", "flagged_steps", "flagged")
+    return {"losses": rep.losses, "max_step_loss_diff": max(diffs),
+            "relu_flips": flips, "grad": {k: g_read[k] for k in keep},
+            "update": {k: u_read[k] for k in keep}}
+
+
+def family_full_batch(cfg: RecsysConfig, params) -> tuple:
+    """FAMILY_STEPS adagrad steps at the training batch (the two-tower's
+    TWO_TOWER_B): finite losses, and each step launches robe_lookup and
+    robe_lookup_bwd once and no other kernel.  Returns (the run's
+    numbers, its first batch on the card)."""
+    b = TWO_TOWER_B if cfg.arch == "two_tower" else B_TRAIN
+    stream = family_stream(cfg, b)
+    batches = [stream.batch_at(k) for k in range(FAMILY_STEPS)]
+    per_step = []
+
+    def count(step_fn):
+        def step(state, batch):
+            reset_launches()
+            out = step_fn(state, batch)
+            torch.cuda.synchronize()
+            per_step.append(launch_counts())
+            return out
+        return step
+    rep = train_run(cfg, params, OptimizerConfig(kind="adagrad",
+                                                 lr=FAMILY_LR),
+                    lambda k: batches[k], FAMILY_STEPS, count)
+    require(len(rep.losses) == FAMILY_STEPS and np.isfinite(rep.losses).all(),
+            f"{cfg.name} adagrad B={b}: losses {rep.losses}")
+    for k, c in enumerate(per_step):
+        require(all(n == (1 if name in ("robe_lookup", "robe_lookup_bwd")
+                          else 0) for name, n in c.items()),
+                f"{cfg.name} adagrad B={b} step {k} launched {c}; expected "
+                f"one robe_lookup, one robe_lookup_bwd and no other kernel")
+    first = {k: torch.from_numpy(v).to("cuda") for k, v in batches[0].items()}
+    return {"batch": b, "losses": rep.losses,
+            "launches_per_step": {k: v for k, v in per_step[0].items()
+                                  if v}}, first
+
+
+def family_kernel_times(cfg: RecsysConfig, params, train_rows, rates,
+                        dev) -> dict:
+    """``robe_lookup`` at the configuration's serve shapes (B = 512 and
+    262,144; the two-tower's query at 512 and its N_CAND candidates' item
+    fields) and ``robe_lookup_bwd`` at its training batch, each beside its
+    bound as ``time_kernels`` and ``time_backwards`` count it (forward:
+    the rows and the touched slots read, the output written; backward: g
+    and the rows read, the |M| f32 gradient written), the backward's
+    passes (``device_breakdown``) and both plain versions at B = 512."""
+    spec = cfg.embedding_spec().robe
+    mem = params["embedding"]["memory"]
+    d, f = cfg.embed_dim, cfg.n_fields
+    every = tuple(range(f))
+    stream = family_stream(cfg, B_P99)
+    small = [torch.from_numpy(stream.batch_at(k)["sparse"]).to(dev)
+             for k in range(8)]
+    if cfg.arch == "two_tower":
+        items = tuple(range(cfg.n_user_fields, f))
+        cand = torch.from_numpy(retrieval_batch(
+            CtrDataConfig(vocab_sizes=cfg.vocab_sizes, batch_size=B_P99,
+                          seed=SEED), 0, cfg.n_user_fields,
+            N_CAND)["cand_sparse"]).to(dev)
+        fwd = {"": (every, small), f"_cand_{N_CAND}": (items, [cand])}
+    else:
+        fwd = {"": (every, small),
+               "_bulk": (every, [family_rows(cfg, B_BULK, dev)])}
+    out = {"robe_lookup": {}, "robe_lookup_bwd": {}}
+    rl, rb = out["robe_lookup"], out["robe_lookup_bwd"]
+    for tag, (ids, rows) in fwd.items():
+        b, nf = rows[0].shape
+        uniq = int(touched_slots(spec, rows[0], table_ids=ids, dim=d).sum())
+        rl["bound_ms" + tag], rl["bound_by" + tag] = bound(
+            b * nf * 4 + uniq * 4 + b * nf * d * 4, 0, rates)
+        rl["touched_slots" + tag] = uniq
+        rl["library_ms" + tag] = None
+        rl["ms" + tag] = device_ms(
+            lambda r: robe_lookup_cuda(mem, r, ids, d, spec),
+            [(r,) for r in rows])
+    rl["plain_ms"] = device_ms(
+        lambda r: robe_lookup_ref(mem, r, every, d, spec),
+        [(r,) for r in small])
+    b = train_rows.shape[0]
+    gs = [torch.randn((b, f, d), device=dev) for _ in range(2)]
+    rb["bound_ms_train"], rb["bound_by_train"] = bound(
+        b * f * d * 4 + b * f * 4 + spec.size * 4, 0, rates)
+    rb["touched_slots_train"] = int(touched_slots(spec, train_rows,
+                                                  dim=d).sum())
+    rb["library_ms_train"] = None
+    rb["batch_train"] = b
+    rb["ms_train"] = device_ms(
+        lambda g: robe_lookup_bwd_cuda(g, train_rows, every, d, spec),
+        [(g,) for g in gs])
+    rb["passes_ms_train"] = device_breakdown(
+        lambda: robe_lookup_bwd_cuda(gs[0], train_rows, every, d,
+                                     spec))["top_ms"]
+    g_small = [torch.randn((B_P99, f, d), device=dev) for _ in small]
+    rb["plain_ms"] = device_ms(
+        lambda r, g: robe_lookup_bwd_ref(g, r, every, d, spec),
+        list(zip(small, g_small)))
+    out["config"] = {"fields": f, "dim": d, "z": spec.block_size,
+                     "slots": spec.size}
+    del gs, g_small, small
+    return out
+
+
+def recsys_family(rates, dev) -> dict:
+    """Phase (g): each configuration of FAMILY from its own seeded init on
+    the card: ``family_serve``, ``family_adam``, ``family_full_batch``, the
+    full-batch step's time with its device breakdown
+    (``time_train_step``), ``family_kernel_times`` (once a lookup shape:
+    the Table-3 models share theirs), and the configuration's peak device
+    memory."""
+    out, timed = {}, {}
+    for name in FAMILY:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = family_config(name)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = init_params(cfg, gen, dev)
+        res = {"arch": cfg.arch, "fields": cfg.n_fields,
+               "dim": cfg.embed_dim, "robe_size": cfg.robe_size,
+               "robe_block": cfg.robe_block}
+        with torch.inference_mode():
+            res["serve"] = family_serve(cfg, params, to_device(params, "cpu"))
+        res["train_adam"] = family_adam(cfg, params)
+        res["train_full_batch"], batch = family_full_batch(cfg, params)
+        res["step"] = time_train_step(cfg, params, batch)
+        top = res["step"]["profile"]["top_ms"]
+        res["step"]["profile"]["top_ms"] = dict(list(top.items())[:8])
+        key = (cfg.vocab_sizes, cfg.embed_dim, cfg.robe_size)
+        if key in timed:
+            res["kernels"] = f"as {timed[key]}"
+        else:
+            timed[key] = name
+            with torch.inference_mode():
+                res["kernels"] = family_kernel_times(cfg, params,
+                                                     batch["sparse"], rates,
+                                                     dev)
+        del params, batch
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t0
+        print(f"recsys family {name}: ok ({res['wall_s']:.1f} s), peak "
+              f"memory {res['max_memory_allocated']} B")
+        out[name] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -2280,15 +2712,19 @@ def host_ms(fn, reps: int = REPS) -> float:
     return statistics.median(per)
 
 
-def touched_slots(spec, idx, chunk: int = 8192) -> torch.Tensor:
-    """Mask of the slots of M a lookup of ``idx`` [B, F(, bag)] reads (-1
-    pads read nothing): what this run's data needs from M."""
+def touched_slots(spec, idx, chunk: int = 8192, table_ids=None,
+                  dim: int = D) -> torch.Tensor:
+    """Mask of the slots of M a lookup of ``idx`` [B, F(, bag)] (default
+    table ids 0..F-1, width ``dim``) reads (-1 pads read nothing): what
+    this run's data needs from M."""
     seen = torch.zeros(spec.size, dtype=torch.bool, device=idx.device)
-    tids = torch.arange(F, device=idx.device).view(
-        (1, F) + (1,) * (idx.dim() - 2))
+    f = idx.shape[1]
+    tids = torch.as_tensor(range(f) if table_ids is None else table_ids,
+                           device=idx.device).view(
+        (1, f) + (1,) * (idx.dim() - 2))
     for s in range(0, idx.shape[0], chunk):
         part = idx[s:s + chunk]
-        slots = robe_slots(spec, tids, part.clamp_min(0), D)
+        slots = robe_slots(spec, tids, part.clamp_min(0), dim)
         seen[slots[part >= 0]] = True
     return seen
 
@@ -2610,15 +3046,17 @@ def device_breakdown(fn, calls: int = 3) -> dict:
             "top_ms": {k: v / calls / 1e3 for k, v in top}}
 
 
-def time_train_step(cfg: RecsysConfig, params) -> dict:
+def time_train_step(cfg: RecsysConfig, params, batch=None) -> dict:
     """One full-width adagrad ``step_fn`` at B=65536 (with qrobe's
-    ``project``): host-clock median (batch on the card, the loss read back
-    as ``run`` reads it), and its device breakdown."""
+    ``project``) on ``batch`` (default: the dlrm stream's first batch):
+    host-clock median of 7 (batch on the card, the loss read back as
+    ``run`` reads it), and its device breakdown."""
     optimizer = make_optimizer(OptimizerConfig(kind="adagrad", lr=1e-3))
     tc = TrainConfig()
     step_fn = build_train_step(lambda p, b: loss_fn(p, cfg, b), optimizer,
                                tc, project=make_project_fn(cfg))
-    batch = train_batches(B_TRAIN, 1, "cuda")[0]
+    if batch is None:
+        batch = train_batches(B_TRAIN, 1, "cuda")[0]
     box = {"state": init_state(params, optimizer, tc)}
 
     def one():
@@ -2626,7 +3064,8 @@ def time_train_step(cfg: RecsysConfig, params) -> dict:
         float(m["loss"])
     ms = host_ms(one, reps=7)
     prof = device_breakdown(one)
-    return {"step_ms": ms, "batch": B_TRAIN, "profile": prof}
+    return {"step_ms": ms, "batch": int(batch["sparse"].shape[0]),
+            "profile": prof}
 
 
 def time_scores(paths: dict, batches: dict) -> dict:
@@ -2742,11 +3181,17 @@ def main() -> int:
     print(json.dumps({"score_ms": scores, "batch": B_P99,
                       "batch_bulk": B_BULK, "card": smi}))
 
-    # last: full against robe at dlrm-rm2 width, with the 52 GB table; the
-    # earlier phases' tensors are freed first and their peak is kept
+    # then, with the earlier phases' tensors freed (their peak is kept),
+    # (g) the rest of the recsys family, and last full against robe at
+    # dlrm-rm2 width, with the 52 GB table
     peak = torch.cuda.max_memory_allocated()
     del fused, unfused, subs, paths, train_params, memory
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    family = recsys_family(rates, dev)
+    family["wall_s"] = time.perf_counter() - t0
+    family["card"] = smi
+    print(f"recsys family ok ({family['wall_s']:.1f} s)")
     t0 = time.perf_counter()
     _, rm2 = full_vs_robe()
     print(f"full against robe ok ({time.perf_counter() - t0:.1f} s); peak "
@@ -2800,6 +3245,7 @@ def main() -> int:
                   err["serve_fused_bwd"]["over_a"]["bfloat16"],
               **times["serve_fused_bwd"]}
     print(json.dumps({"serve_fused_bwd": sf_bwd}))
+    print(json.dumps({"recsys_family": family}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

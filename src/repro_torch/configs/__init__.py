@@ -1,6 +1,8 @@
 """Model configurations (PyTorch port of ``repro.configs``)."""
 
-from repro_torch.configs.registry import (RECSYS_SHAPES, ArchBundle,
-                                          get_arch, register)
+from repro_torch.configs.registry import (ARCH_IDS, RECSYS_SHAPES,
+                                          ArchBundle, all_arch_ids, get_arch,
+                                          register)
 
-__all__ = ["RECSYS_SHAPES", "ArchBundle", "get_arch", "register"]
+__all__ = ["ARCH_IDS", "RECSYS_SHAPES", "ArchBundle", "all_arch_ids",
+           "get_arch", "register"]

@@ -1,5 +1,6 @@
 """Architecture registry: ``get_arch(id)`` -> ArchBundle (PyTorch port of
-``repro.configs.registry``; the two DLRM bundles only, so far).
+``repro.configs.registry``; the recsys bundles: the LM and GNN ones wait
+for the port of those families).
 
 Each bundle carries the full-scale config, a reduced smoke config (same
 structure, tiny dims) and its shape cells.
@@ -9,7 +10,14 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
+
+ARCH_IDS = (
+    # RecSys
+    "autoint", "dlrm-rm2", "two-tower-retrieval", "xdeepfm",
+    # the paper's own model (not an assigned cell; used by benchmarks)
+    "dlrm-criteo-tb",
+)
 
 RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
@@ -40,6 +48,10 @@ def get_arch(arch_id: str) -> ArchBundle:
     if not _REGISTRY:
         _load_all()
     return _REGISTRY[arch_id]
+
+
+def all_arch_ids() -> Tuple[str, ...]:
+    return ARCH_IDS[:-1]          # the assigned ones (excl. paper's own)
 
 
 _MODULES = ["repro_torch.configs.recsys_archs"]

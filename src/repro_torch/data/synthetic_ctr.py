@@ -169,3 +169,17 @@ class RequestStream:
         the cache-warming feed (``HotRowCache.warm``)."""
         return [self._stream.batch_at(s)["sparse"]
                 for s in range(start_step, start_step + n_batches)]
+
+
+def retrieval_batch(cfg: CtrDataConfig, step: int, n_user_fields: int,
+                    n_candidates: int) -> dict:
+    """One query + a candidate set for retrieval scoring: the first sample
+    of ``batch_at(step)``'s sparse ids [1, F] and ``n_candidates`` uniform
+    item-field ids [n_candidates, F - n_user_fields] (int32)."""
+    stream = CtrStream(cfg)
+    b = stream.batch_at(step)
+    rs = np.random.RandomState((cfg.seed * 7 + step) % 2 ** 31)
+    item_vocab = np.asarray(cfg.vocab_sizes[n_user_fields:], np.int64)
+    cand = (rs.random_sample((n_candidates, len(item_vocab)))
+            * item_vocab[None, :]).astype(np.int32)
+    return {"sparse": b["sparse"][:1], "cand_sparse": cand}

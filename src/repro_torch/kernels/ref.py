@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the port's kernels: the six forward kernels
 and the backwards of every op (``robe_lookup``, ``dot_interaction``,
-``qrobe_lookup``, ``qr_lookup``, ``tt_lookup`` and ``serve_fused``).
+``qrobe_lookup``, ``qr_lookup``, ``tt_lookup`` and ``serve_fused``); and
+the CIN layer's oracle (``cin_layer_ref``), which the chunked CIN of
+``nn.interactions`` is held against.
 
 Each function is the semantics its Hopper kernel is held against: the CPU
 path of ``repro_torch.kernels.ops`` runs them, the tests hold them against
@@ -184,6 +186,18 @@ def serve_fused_bwd_ref(g: torch.Tensor, memory: torch.Tensor,
     gm = torch.zeros(spec.size, dtype=torch.float32, device=g.device)
     gm.index_add_(0, slots.reshape(-1), dpool.reshape(-1))
     return gm.to(memory.dtype), dfeats[:, 0].to(bot.dtype)
+
+
+def cin_layer_ref(x0: torch.Tensor, xk: torch.Tensor, w: torch.Tensor
+                  ) -> torch.Tensor:
+    """xDeepFM Compressed Interaction Network layer (the oracle of
+    ``nn.interactions.cin_layer``).
+
+    x0: [B, F0, D] base field embeddings; xk: [B, Fk, D] previous layer;
+    w: [H, F0, Fk] compression weights -> [B, H, D].
+    z[b,i,j,d] = x0[b,i,d] * xk[b,j,d]; out[b,h,d] = Σ_ij w[h,i,j] z[b,i,j,d].
+    """
+    return torch.einsum("bid,bjd,hij->bhd", x0, xk, w)
 
 
 def qr_indices(idx: torch.Tensor, q_off, r_off, m: int) -> tuple:

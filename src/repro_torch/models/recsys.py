@@ -1,10 +1,11 @@
-"""RecSys models (PyTorch port of ``repro.models.recsys``; DLRM only).
+"""RecSys models (PyTorch port of ``repro.models.recsys``): DLRM, AutoInt,
+xDeepFM, DeepFM, DCN, FiBiNET and the two-tower retrieval model.
 
-Batch layout: dense features [B, n_dense] float, sparse ids [B, F] int32,
-labels [B] (for ``loss_fn``), all tensors on the model's device.  Outputs
-are logits [B].  The other
-architectures of the JAX package (autoint, xdeepfm, deepfm, dcn, fibinet,
-two_tower) raise until they are ported.
+All share the embedding front-end (``EmbeddingSpec`` + a registered
+``EmbeddingBackend``) and differ in the interaction op.  Batch layout:
+dense features [B, n_dense] float, sparse ids [B, F] int32, labels [B]
+(for ``loss_fn``), all tensors on the model's device.  Outputs are logits
+[B] (CTR models) or retrieval scores [B, n_candidates] (two-tower).
 """
 
 from __future__ import annotations
@@ -15,23 +16,35 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.robe import RobeSpec
-from repro_torch.nn.core import mlp_apply, mlp_init
+from repro_torch.nn.core import dense_apply, dense_init, mlp_apply, mlp_init
 from repro_torch.nn.embeddings import (EmbeddingSpec, embedding_init,
                                        embedding_lookup, get_backend)
-from repro_torch.nn.interactions import dot_interaction_op
-
-PORTED_ARCHS = ("dlrm",)
+from repro_torch.nn.interactions import (autoint_layer_apply,
+                                         autoint_layer_init, bilinear_apply,
+                                         bilinear_init, cin_apply, cin_init,
+                                         cross_net_apply, cross_net_init,
+                                         dot_interaction_op, fm_interaction,
+                                         senet_apply, senet_init)
 
 
 @dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
-    arch: str                        # dlrm (others not yet ported)
+    #: dlrm | autoint | xdeepfm | deepfm | dcn | fibinet | two_tower
+    arch: str
     vocab_sizes: Tuple[int, ...]
     embed_dim: int
     n_dense: int = 0
     bot_mlp: Tuple[int, ...] = ()
     top_mlp: Tuple[int, ...] = ()
+    dnn: Tuple[int, ...] = ()        # deep branch (deepfm/xdeepfm/dcn/…)
+    cin_layers: Tuple[int, ...] = ()
+    cross_layers: int = 0
+    attn_layers: int = 0
+    attn_dim: int = 0
+    attn_heads: int = 0
+    tower_mlp: Tuple[int, ...] = ()  # two-tower
+    n_user_fields: int = 0           # two-tower: first k fields are user side
     # embedding substrate — any registered EmbeddingBackend name
     embedding: str = "robe"
     robe_size: int = 0
@@ -58,35 +71,63 @@ class RecsysConfig:
         return len(self.vocab_sizes)
 
 
-def _check_arch(cfg: RecsysConfig) -> None:
-    if cfg.arch not in PORTED_ARCHS:
-        raise NotImplementedError(f"recsys arch {cfg.arch!r} is not yet "
-                                  f"ported; ported: {PORTED_ARCHS}")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: RecsysConfig, generator: torch.Generator,
                 device) -> dict:
-    """Random parameters in the JAX package's tree: {"embedding": {...},
-    "bot": [dense...], "top": [dense...]}.  Draws come from ``generator``
-    (other numbers than ``jax.random`` gives for the same seed)."""
-    _check_arch(cfg)
+    """Random parameters in the JAX package's tree ({"embedding": {...}}
+    and the arch's layers).  Draws come from ``generator`` in the order of
+    the JAX package's keys (other numbers than ``jax.random`` gives for
+    the same seed)."""
     spec = cfg.embedding_spec()
-    f = cfg.n_fields
-    n_pairs = (f + 1) * f // 2          # F embeddings + bottom output
-    return {
-        # the full table's rows padded to a multiple of 512, as the JAX
-        # package pads them to row-shard evenly, so its params load leaf
-        # for leaf
-        "embedding": embedding_init(generator, spec, device,
-                                    pad_rows_to=512),
-        "bot": mlp_init(generator, (cfg.n_dense,) + cfg.bot_mlp, device),
-        "top": mlp_init(generator, (cfg.bot_mlp[-1] + n_pairs,)
-                        + cfg.top_mlp, device),
-    }
+    # the full table's rows padded to a multiple of 512, as the JAX
+    # package pads them to row-shard evenly, so its params load leaf for
+    # leaf
+    p: dict = {"embedding": embedding_init(generator, spec, device,
+                                           pad_rows_to=512)}
+    f, d = cfg.n_fields, cfg.embed_dim
+    a = cfg.arch
+    if a == "dlrm":
+        p["bot"] = mlp_init(generator, (cfg.n_dense,) + cfg.bot_mlp, device)
+        n_pairs = (f + 1) * f // 2          # F embeddings + bottom output
+        p["top"] = mlp_init(generator, (cfg.bot_mlp[-1] + n_pairs,)
+                            + cfg.top_mlp, device)
+    elif a == "autoint":
+        p["attn"] = [autoint_layer_init(
+            generator, d if i == 0 else cfg.attn_dim * cfg.attn_heads,
+            cfg.attn_dim, cfg.attn_heads, device)
+            for i in range(cfg.attn_layers)]
+        p["out"] = dense_init(generator, f * cfg.attn_dim * cfg.attn_heads,
+                              1, device)
+    elif a == "xdeepfm":
+        p["cin"] = cin_init(generator, f, cfg.cin_layers, device)
+        p["dnn"] = mlp_init(generator, (f * d,) + cfg.dnn + (1,), device)
+        p["cin_out"] = dense_init(generator, sum(cfg.cin_layers), 1, device)
+        p["linear"] = dense_init(generator, f * d, 1, device)
+    elif a == "deepfm":
+        p["dnn"] = mlp_init(generator, (f * d,) + cfg.dnn + (1,), device)
+        p["linear"] = dense_init(generator, f * d, 1, device)
+    elif a == "dcn":
+        p["cross"] = cross_net_init(generator, f * d, cfg.cross_layers,
+                                    device)
+        p["dnn"] = mlp_init(generator, (f * d,) + cfg.dnn, device)
+        p["out"] = dense_init(generator, f * d + cfg.dnn[-1], 1, device)
+    elif a == "fibinet":
+        p["senet"] = senet_init(generator, f, device)
+        p["bilinear"] = bilinear_init(generator, f, d, device)
+        p["bilinear2"] = bilinear_init(generator, f, d, device)
+        n_bi = f * (f - 1) // 2 * d
+        p["dnn"] = mlp_init(generator, (2 * n_bi,) + cfg.dnn + (1,), device)
+    elif a == "two_tower":
+        in_u = cfg.n_user_fields * d
+        in_i = (f - cfg.n_user_fields) * d
+        p["user"] = mlp_init(generator, (in_u,) + cfg.tower_mlp, device)
+        p["item"] = mlp_init(generator, (in_i,) + cfg.tower_mlp, device)
+    else:
+        raise ValueError(f"unknown recsys arch {a}")
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -137,28 +178,97 @@ def forward(params, cfg: RecsysConfig, batch: dict,
     """batch: {"dense": [B,n_dense], "sparse": [B,F]} -> logits [B].
 
     ``serve`` marks the inference path, where the fused serve kernel may
-    engage.  A batch may carry precomputed ``"emb"`` [B, F, dim]; it takes
-    precedence over the substrate lookup and the fused kernel.
+    engage (DLRM).  A batch may carry precomputed ``"emb"`` [B, F, dim];
+    it takes precedence over the substrate lookup and the fused kernel.
     """
-    _check_arch(cfg)
-    dense = batch["dense"].to(cfg.compute_dtype)
-    bot = mlp_apply(params["bot"], dense, final_act=torch.relu)
-    inter = _dlrm_interaction(params, cfg, batch, bot, serve)
-    top_in = torch.cat([bot, inter], dim=-1)
-    return mlp_apply(params["top"], top_in)[:, 0]
+    a = cfg.arch
+    if a == "dlrm":
+        dense = batch["dense"].to(cfg.compute_dtype)
+        bot = mlp_apply(params["bot"], dense, final_act=torch.relu)
+        inter = _dlrm_interaction(params, cfg, batch, bot, serve)
+        top_in = torch.cat([bot, inter], dim=-1)
+        return mlp_apply(params["top"], top_in)[:, 0]
+    emb = _batch_emb(params, cfg, batch)             # [B,F,D]
+    b, f, d = emb.shape
+    flat = emb.reshape(b, f * d)
+    if a == "autoint":
+        x = emb
+        for layer in params["attn"]:
+            x = autoint_layer_apply(layer, x, cfg.attn_heads)
+        return dense_apply(params["out"], x.reshape(b, -1))[:, 0]
+    if a == "xdeepfm":
+        cin = cin_apply(params["cin"], emb)
+        return (dense_apply(params["cin_out"], cin)[:, 0]
+                + mlp_apply(params["dnn"], flat)[:, 0]
+                + dense_apply(params["linear"], flat)[:, 0])
+    if a == "deepfm":
+        return (fm_interaction(emb)[:, 0]
+                + mlp_apply(params["dnn"], flat)[:, 0]
+                + dense_apply(params["linear"], flat)[:, 0])
+    if a == "dcn":
+        cross = cross_net_apply(params["cross"], flat)
+        deep = mlp_apply(params["dnn"], flat, final_act=torch.relu)
+        return dense_apply(params["out"],
+                           torch.cat([cross, deep], dim=-1))[:, 0]
+    if a == "fibinet":
+        se = senet_apply(params["senet"], emb)
+        bi1 = bilinear_apply(params["bilinear"], emb)
+        bi2 = bilinear_apply(params["bilinear2"], se)
+        x = torch.cat([bi1, bi2], dim=-1)
+        return mlp_apply(params["dnn"], x)[:, 0]
+    raise ValueError(f"forward undefined for {a}")
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(1e-6)
+
+
+def tower_vectors(params, cfg: RecsysConfig, batch: dict
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """two-tower: -> (user [B,D], item [B,D]), L2-normalized."""
+    emb = _embed(params, cfg, batch["sparse"])
+    b = emb.shape[0]
+    ku = cfg.n_user_fields
+    u = mlp_apply(params["user"], emb[:, :ku].reshape(b, -1))
+    v = mlp_apply(params["item"], emb[:, ku:].reshape(b, -1))
+    return _l2_normalize(u), _l2_normalize(v)
 
 
 def serve_scores(params, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
-    """Online/bulk inference: CTR logits [B]."""
+    """Online/bulk inference: logits [B] (CTR) or retrieval scores
+    [B, n_candidates] of the queries ``batch["sparse"]`` against the item
+    fields' ids ``batch["cand_sparse"]`` (two-tower)."""
+    if cfg.arch == "two_tower":
+        emb_spec = cfg.embedding_spec()
+        u, _ = tower_vectors(params, cfg, batch)
+        item_fields = tuple(range(cfg.n_user_fields, cfg.n_fields))
+        cand = embedding_lookup(
+            params["embedding"], emb_spec,
+            batch["cand_sparse"].reshape(-1, len(item_fields)),
+            fields=item_fields)
+        n = cand.shape[0]
+        # the JAX package shards the candidates over its mesh here; on one
+        # device that is nothing (module item 6, distribution)
+        vi = mlp_apply(params["item"],
+                       cand.to(cfg.compute_dtype).reshape(n, -1))
+        return u @ _l2_normalize(vi).T              # [B, n_candidates]
     return forward(params, cfg, batch, serve=True)
 
 
 def loss_fn(params, cfg: RecsysConfig, batch: dict) -> Tuple[torch.Tensor,
                                                              dict]:
-    """Mean binary cross-entropy of the logits against ``batch["label"]``,
-    in the JAX package's form ``max(l, 0) - l·y + log1p(exp(-|l|))``.
-    Returns (loss, {"logloss": loss})."""
-    _check_arch(cfg)
+    """CTR models: mean binary cross-entropy of the logits against
+    ``batch["label"]``, in the JAX package's form ``max(l, 0) - l·y +
+    log1p(exp(-|l|))``; returns (loss, {"logloss": loss}).  Two-tower: the
+    in-batch sampled softmax of the ×20 user-item cosines, each user's own
+    item the gold; returns (loss, {"loss": loss})."""
+    if cfg.arch == "two_tower":
+        u, v = tower_vectors(params, cfg, batch)
+        logits = (u @ v.T) * 20.0               # in-batch sampled softmax
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.diagonal(logits)
+        loss = (lse - gold).mean()
+        return loss, {"loss": loss}
     logits = forward(params, cfg, batch)
     y = batch["label"].to(torch.float32)
     ce = torch.mean(torch.clamp_min(logits, 0) - logits * y
@@ -175,7 +285,6 @@ def make_project_fn(cfg: RecsysConfig):
     substrates (robe, hashed, tt) return None and the train step skips the
     hook.
     """
-    _check_arch(cfg)
     spec = cfg.embedding_spec()
     backend = get_backend(spec.kind)
     if backend.project is None:

@@ -24,9 +24,20 @@ def he_uniform(generator: torch.Generator, shape, device,
     return w.uniform_(-lim, lim, generator=generator).to(device)
 
 
+def normal_init(generator: torch.Generator, shape, device,
+                stddev: float = 0.02) -> torch.Tensor:
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    return (w.normal_(generator=generator) * stddev).to(device)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, device,
-               bias: bool = True) -> dict:
-    p = {"w": he_uniform(generator, (d_in, d_out), device)}
+               bias: bool = True, scale: Optional[float] = None) -> dict:
+    """A weight ``[d_in, d_out]``: normal × ``scale`` when a scale is given,
+    else He-uniform; a zero bias."""
+    w = (normal_init(generator, (d_in, d_out), device, scale)
+         if scale is not None else he_uniform(generator, (d_in, d_out),
+                                              device))
+    p = {"w": w}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
     return p

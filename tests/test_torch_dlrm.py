@@ -161,10 +161,17 @@ def test_server_refuses_what_is_not_ported():
         srv.push("robe")
     srv.warm_caches([batch["sparse"]])
     assert all(srv.cache(b) is None for b in srv.backends)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trec.init_params(dataclasses.replace(
-            srv.recsys_config("robe"), arch="autoint"),
-            torch.Generator(), "cpu")
+    # every recsys arch of the JAX package inits; an unknown one raises as
+    # the JAX package's init does
+    autoint = dataclasses.replace(srv.recsys_config("robe"), arch="autoint",
+                                  attn_layers=1, attn_dim=4, attn_heads=2)
+    assert set(trec.init_params(autoint, torch.Generator(), "cpu")) == {
+        "embedding", "attn", "out"}
+    bogus = dataclasses.replace(srv.recsys_config("robe"), arch="bogus")
+    with pytest.raises(ValueError, match="unknown recsys arch bogus"):
+        jrec.init_params(jax.random.PRNGKey(0), bogus)
+    with pytest.raises(ValueError, match="unknown recsys arch bogus"):
+        trec.init_params(bogus, torch.Generator(), "cpu")
 
 
 def test_entry_points_run_on_cuda_unless_asked(monkeypatch):

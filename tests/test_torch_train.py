@@ -285,11 +285,29 @@ def test_make_project_fn():
     assert out["top"] is top
     assert out["embedding"]["codes"][:3].tolist() == [4, -3, 0]
     assert not bool(out["embedding"]["delta"].any())
-    other = dataclasses.replace(_configs("dlrm-rm2")[1], arch="dcn")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trec.make_project_fn(other)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trec.loss_fn({}, other, {})
+    # the hook depends on the substrate alone: a dcn model gets none on
+    # robe and qrobe's projection on qrobe, as a dlrm model does
+    dcn = dict(arch="dcn", cross_layers=2, dnn=(16,))
+    assert trec.make_project_fn(dataclasses.replace(
+        _configs("dlrm-rm2")[1], **dcn)) is None
+    qdcn = trec.make_project_fn(dataclasses.replace(qcfg, **dcn))
+    qout = qdcn({"embedding": emb, "top": top})
+    assert qout["top"] is top
+    for k in ("codes", "scale", "delta"):
+        assert torch.equal(qout["embedding"][k], out["embedding"][k])
+    # an unknown arch raises in its forward, as the JAX package's does
+    jcfg, tcfg = _configs("dlrm-rm2")
+    jparams = jrec.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    rs = np.random.RandomState(0)
+    batch = {"dense": rs.randn(4, 13).astype(np.float32),
+             "sparse": rs.randint(0, 40, (4, 6)).astype(np.int32),
+             "label": rs.randint(0, 2, 4).astype(np.int32)}
+    with pytest.raises(ValueError, match="forward undefined for bogus"):
+        jrec.loss_fn(jparams, dataclasses.replace(jcfg, arch="bogus"), batch)
+    with pytest.raises(ValueError, match="forward undefined for bogus"):
+        trec.loss_fn(tparams, dataclasses.replace(tcfg, arch="bogus"),
+                     {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
 # ---------------------------------------------------------------------------
