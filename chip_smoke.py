@@ -179,13 +179,35 @@ non-zero on failure:
    ``score`` and the step timed (host clock, median of 7) with the step's
    device breakdown; robe_lookup and robe_lookup_bwd alone at each new
    shape beside their bounds; each configuration's peak device memory;
-6. one JSON line of the recsys family's numbers, one of kernel numbers,
-   then, last, the ok line.
+   (h) distribution on a one-rank NCCL mesh (a ``FileStore`` in a
+   temporary directory; ``make_mesh((1, 1), ("data", "model"))`` on the
+   card), every sharded code path at full width: inside (e), on its
+   52.3 GB table (the rank's shard is the table itself), ``full``
+   row-sharded over ``model`` and over the whole mesh (``2d``):
+   ``score`` at B = 512 and 262,144 ``np.array_equal`` to the unsharded
+   path's, timed in turns with it; after (f), ZeRO-3 ``robe`` at
+   ``dlrm-criteo-tb`` width (26,135,627 slots): ``score`` at B = 512 and
+   262,144 equal to the replicated unfused path's, one robe_lookup a call
+   and no serve_fused; five adagrad steps at B = 65,536, each held to the
+   undistributed card step from the same state (loss within 2e-3, updates
+   by ``UpdateErr``), one robe_lookup and one robe_lookup_bwd a step, the
+   array's gather and reduce-scatter once a step, timed beside the
+   replicated step (host clock, median of 7); ``bf16`` and ``int8``
+   compressed steps (three, finite), and on the card's gradient g with
+   residual r: out + new_r == g + r exactly, |out - (g + r)| within half
+   a bf16 ulp or half the int8 grid step; ``save`` of the ZeRO-3 state on
+   the mesh and ``restore_onto`` it, bit for bit; the two-tower's
+   retrieval of 10^6 candidates under the mesh, ``torch.equal`` to (g)'s
+   scores;
+6. one JSON line of the recsys family's numbers, one of (h)'s, one of
+   kernel numbers (the training kernels' ``launches_mesh``: (h)'s five
+   ZeRO-3 steps), then, last, the ok line.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -196,6 +218,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from datetime import timedelta
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -210,6 +233,9 @@ from repro_torch.core.robe import (init_memory,
                                    robe_slots)
 from repro_torch.data import (CtrDataConfig, CtrStream,
                               RequestStream, retrieval_batch)
+from repro_torch.dist import api as dist
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.param_specs import recsys_specs
 from repro_torch.kernels import (_build, dot_interaction_bwd_cuda,
                                  dot_interaction_cuda, launch_counts,
                                  qr_lookup_bwd_cuda, qr_lookup_cuda,
@@ -232,6 +258,7 @@ from repro_torch.kernels.robe_lookup import bwd_plan
 from repro_torch.kernels.tt_lookup import RANKS as TT_RANKS
 from repro_torch.kernels.tt_lookup import bwd_plan as tt_bwd_plan
 from repro_torch.kernels.serve_fused import serve_fused_bwd_cuda
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
                                        loss_fn, make_project_fn,
                                        serve_scores)
@@ -251,6 +278,8 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.metrics import auc
 from repro_torch.train.online import OnlineConfig, OnlineTrainer
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+from repro_torch.train.compression import compressed_psum
+from repro_torch.train.elastic import train_state_specs
 from repro_torch.train.train_loop import (TrainConfig, build_train_step,
                                           init_state, run)
 from repro_torch.tree import leaves, tree_map, unflatten
@@ -373,6 +402,8 @@ FAMILY_STEPS, FAMILY_N_VALID = 5, 437
 TWO_TOWER_B = 16384
 #: retrieval_cand (1 query, 10^6 candidates) and the CPU's check of it
 N_CAND, CPU_CAND = 1_000_000, 4096
+G_SCORES = {}                         # (g)'s retrieval scores, for (h)
+H_STEPS, H_COMPRESSED_STEPS, H_REPS = 5, 3, 7
 FAMILY_REPS = 7
 REPS = 21
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
@@ -2416,6 +2447,8 @@ def family_serve(cfg: RecsysConfig, params, cpu_params) -> dict:
                 f"{cfg.name} {label}: scores of shape {tuple(got.shape)}, "
                 f"expected {shape}, or not finite")
         row = {"launches": {kk: v for kk, v in c.items() if v}}
+        if label == f"retrieval_{N_CAND}":
+            G_SCORES[cfg.name] = got          # phase (h) holds its own to it
         if k == 0:
             want = serve_scores(cpu_params, cfg, {
                 key: torch.from_numpy(v) for key, v in host.items()})[:n]
@@ -2676,6 +2709,357 @@ def recsys_family(rates, dev) -> dict:
               f"memory {res['max_memory_allocated']} B")
         out[name] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase (h): distribution on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def one_rank_mesh(tmp: str, device: str = "cuda") -> dist.DistContext:
+    """A world of this one process (NCCL on the card; a ``FileStore`` in
+    ``tmp``) and the (1, 1) ("data", "model") mesh on it."""
+    import torch.distributed as tdist
+    tdist.init_process_group("nccl" if device == "cuda" else "gloo",
+                             init_method=f"file://{tmp}/pg", rank=0,
+                             world_size=1, timeout=timedelta(seconds=300))
+    return dist.DistContext(mesh=make_mesh((1, 1), ("data", "model"),
+                                           device=device),
+                            rules=dist.default_rules())
+
+
+def mesh_scores(srv: EmbeddingServer, kind: str, batches) -> tuple:
+    """``score`` of every (batch, n_valid) under the active mesh, with the
+    kernel launches and the collectives of just these calls."""
+    reset_launches()
+    coll.counts.clear()
+    out = [srv.score(kind, b, n) for b, n in batches]
+    torch.cuda.synchronize()
+    return out, launch_counts(), dict(coll.counts)
+
+
+def score_ms_turns(servers: dict, kind: str, batch, n: int,
+                   reps: int) -> dict:
+    """Host-clock ``score`` (median of ``reps``) of each server in turns,
+    the first again last: {label: [ms, ...]}."""
+    out = {label: [] for label in servers}
+    order = list(servers) + list(servers)[::-1]
+    for label in order:
+        ctx = servers[label][1]
+        with dist.use(ctx) if ctx is not None else contextlib.nullcontext():
+            out[label].append(host_ms(
+                lambda: servers[label][0].score(kind, batch, n), reps=reps))
+    return out
+
+
+def score_profiles(servers: dict, kind: str, batch, n: int) -> dict:
+    """``device_breakdown`` of ``score`` for each server (under its
+    context), top kernels cut to 8: {label: breakdown}."""
+    out = {}
+    for label, (srv, ctx) in servers.items():
+        with dist.use(ctx) if ctx is not None else contextlib.nullcontext():
+            prof = device_breakdown(lambda: srv.score(kind, batch, n))
+        prof["top_ms"] = dict(list(prof["top_ms"].items())[:8])
+        out[label] = prof
+    return out
+
+
+def mesh_full_path(ctx, base: EmbeddingServer) -> dict:
+    """(h) 2: ``full`` row-sharded over ``model``, then over the whole mesh
+    (``2d``), on (e)'s 52.3 GB table (its shard on one rank is the table
+    itself: no second copy): ``score`` at B = 512 (padded) and 262,144
+    ``np.array_equal`` to the unsharded path's, dot_interaction once a
+    call and no other kernel, and the table's collectives once a call;
+    timed in turns with the unsharded path."""
+    params = base.params("full")
+    small = padded_batches((512, 437), B_P99)
+    bulk = padded_batches((B_BULK,), B_BULK)
+    want = [base.score("full", b, n) for b, n in small + bulk]
+    res = {}
+    for placement in ("model", "2d"):
+        with dist.use(ctx):
+            srv = EmbeddingServer(dataclasses.replace(
+                base.cfg, backends=("full",), cache_capacity=0),
+                params={"full": params}, device="cuda",
+                placement={"full": placement})
+            require(srv.params("full")["embedding"]["table"].data_ptr()
+                    == params["embedding"]["table"].data_ptr(),
+                    "the one-rank shard of the full table is a copy")
+            got, c, cc = mesh_scores(srv, "full", small + bulk)
+        calls = len(small) + len(bulk)
+        require(c["dot_interaction"] == calls and sum(c.values()) == calls,
+                f"sharded full ({placement}) launched {c}; expected "
+                f"dot_interaction once a call and no other kernel")
+        ids = calls if placement == "2d" else 0
+        require(cc.get("reduce_scatter") == calls and
+                cc.get("all_gather") == calls + ids,
+                f"sharded full ({placement}): collectives {cc}; expected "
+                f"one reduce-scatter a call, one all-gather of the logits "
+                f"(and, 2d, of the ids)")
+        for (b, n), g, w in zip(small + bulk, got, want):
+            require(np.array_equal(g, w),
+                    f"sharded full ({placement}) at B={len(b['sparse'])}: "
+                    f"scores differ from the unsharded path by "
+                    f"{np.abs(g - w).max()}")
+        res[placement] = {
+            "launches": {k: v for k, v in c.items() if v},
+            "collectives": cc,
+            "ms_512": score_ms_turns({"unsharded": (base, None),
+                                      "sharded": (srv, ctx)}, "full",
+                                     *small[0], REPS),
+            "ms_262144": score_ms_turns({"unsharded": (base, None),
+                                         "sharded": (srv, ctx)}, "full",
+                                        *bulk[0], H_REPS),
+            "profile_512": score_profiles({"unsharded": (base, None),
+                                           "sharded": (srv, ctx)}, "full",
+                                          *small[0])}
+        del srv
+        print(f"(h) full {placement}: scores equal to the unsharded path's "
+              f"at B=512 and {B_BULK}; {res[placement]['ms_262144']}")
+    return res
+
+
+def z3_steps(ctx, cfg: RecsysConfig, params, batches) -> dict:
+    """(h) 1, training: ZeRO-3 adagrad steps on the mesh, each held to the
+    undistributed card step from the same state (loss within 2e-3, each
+    leaf's update by ``UpdateErr``: medians within 1e-4 of its norm), one
+    launch a step of each of ``TRAIN_KERNELS["robe"]``, the gather and its
+    transpose once a step; then both steps timed (host clock, median of
+    7).  Returns the numbers and the mesh run's last state."""
+    opt = make_optimizer(OptimizerConfig(kind="adagrad", lr=1e-3))
+    tc = TrainConfig()
+    lossf = (lambda p, b: loss_fn(p, cfg, b))
+    whole = init_state(params, opt, tc)
+    plain = build_train_step(lossf, opt, tc)
+    with dist.use(ctx):
+        specs = dist.prune_specs(recsys_specs(
+            params, ctx.rules, cfg.embedding_spec(), mesh=ctx.mesh), params,
+            ctx.mesh)
+        require(specs["embedding"]["memory"] == dist.P("model"),
+                f"ZeRO-3 spec {specs['embedding']}")
+        state = init_state(dist.place(params, specs, ctx), opt, tc)
+        step = build_train_step(lossf, opt, tc, specs=specs)
+    upd = UpdateErr(params)
+    per_step, coll_step, losses = [], [], []
+    for k, batch in enumerate(batches):
+        batch = to_device(batch, "cuda")
+        before = to_device(state["params"], "cpu")
+        reset_launches()
+        coll.counts.clear()
+        with dist.use(ctx):
+            new, m = step(state, batch)
+            loss = float(m["loss"])
+        torch.cuda.synchronize()
+        per_step.append(launch_counts())
+        coll_step.append(dict(coll.counts))
+        ref, mr = plain(state, batch)
+        require(np.isfinite(loss) and abs(loss - float(mr["loss"])) <= 2e-3,
+                f"ZeRO-3 step {k}: loss {loss}, undistributed {mr['loss']}")
+        upd.add(before, new["params"], to_device(ref["params"], "cpu"))
+        losses.append(loss)
+        state = new
+        del ref
+    reading = upd.check("ZeRO-3 adagrad against the undistributed step")
+    for k, (c, cc) in enumerate(zip(per_step, coll_step)):
+        require(all(n == (1 if name in TRAIN_KERNELS["robe"] else 0)
+                    for name, n in c.items()),
+                f"ZeRO-3 step {k} launched {c}; expected one each of "
+                f"{TRAIN_KERNELS['robe']}")
+        require(cc.get("all_gather") == 1 and cc.get("reduce_scatter") == 1,
+                f"ZeRO-3 step {k}: collectives {cc}; expected the array's "
+                f"gather and its reduce-scatter once")
+    box = {"mesh": state, "plain": whole}
+    batch = to_device(batches[0], "cuda")
+
+    def mesh_one():
+        with dist.use(ctx):
+            box["mesh"], mm = step(box["mesh"], batch)
+        float(mm["loss"])
+
+    def plain_one():
+        box["plain"], mm = plain(box["plain"], batch)
+        float(mm["loss"])
+    times = {"replicated": [], "zero3": []}
+    for label, fn in (("replicated", plain_one), ("zero3", mesh_one),
+                      ("zero3", mesh_one), ("replicated", plain_one)):
+        times[label].append(host_ms(fn, reps=H_REPS))
+    profile = {}
+    for label, fn in (("replicated", plain_one), ("zero3", mesh_one)):
+        prof = device_breakdown(fn)
+        prof["top_ms"] = dict(list(prof["top_ms"].items())[:8])
+        profile[label] = prof
+    state = box["mesh"]
+    del box
+    return {"losses": losses, "update": reading,
+            "launches_per_step": per_step[0],
+            "launches": {k: sum(c[k] for c in per_step)
+                         for k in per_step[0]},
+            "collectives_per_step": coll_step[0], "step_ms": times,
+            "profile": profile}, \
+        state, specs
+
+
+def compression_check(ctx, cfg: RecsysConfig, state, specs, batches) -> dict:
+    """(h) 3: ``bf16`` and ``int8`` on the ZeRO-3 step: three compressed
+    steps with finite losses; then on the card's own gradient g (of the
+    next batch) with the run's residual r, ``compressed_psum``'s out and
+    new residual: out + new_r == g + r exactly, and |out - (g + r)|
+    within half a bf16 ulp of g + r, or half the int8 grid step."""
+    opt = make_optimizer(OptimizerConfig(kind="adagrad", lr=1e-3))
+    res = {}
+    for method in ("bf16", "int8"):
+        tc = TrainConfig(grad_compression=method)
+        with dist.use(ctx):
+            st = init_state(state["params"], opt, tc, specs=specs)
+            step = build_train_step(lambda p, b: loss_fn(p, cfg, b), opt,
+                                    tc, specs=specs)
+            losses = []
+            for batch in batches[:H_COMPRESSED_STEPS]:
+                st, m = step(st, to_device(batch, "cuda"))
+                losses.append(float(m["loss"]))
+            require(all(np.isfinite(losses)),
+                    f"{method} compressed steps: losses {losses}")
+            g = loss_grads(cfg, st["params"], to_device(
+                batches[H_COMPRESSED_STEPS], "cuda"))
+            flat_g = leaves(g)
+            flat_r = [r[0] for r in leaves(st["ef"])]
+            out, new_r = compressed_psum(flat_g, flat_r, ctx.dp_axes, method,
+                                         ctx)
+        worst, exact = 0.0, True
+        for gg, rr, o, nr in zip(flat_g, flat_r, out, new_r):
+            x = gg.float() + rr
+            exact &= bool(torch.equal(o + nr, x))
+            if method == "bf16":
+                # half an ulp of x in bf16 (8 significant bits; the
+                # subnormals' spacing below 2^-126)
+                ulp = torch.exp2(torch.floor(torch.log2(x.abs()))
+                                 .clamp_min(-126) - 7)
+                bound = torch.where(x == 0, torch.zeros_like(x), ulp / 2)
+            else:
+                scale = torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+                bound = torch.full_like(x, float(scale) / 2 * (1 + 1e-6))
+            over = float(((o - x).abs() - bound).max())
+            worst = max(worst, over)
+        require(exact, f"{method}: out + new residual != g + r")
+        require(worst <= 0.0, f"{method}: |out - (g + r)| exceeds its "
+                f"bound by {worst}")
+        res[method] = {"losses": losses, "exact_bookkeeping": exact,
+                       "max_over_bound": worst,
+                       "residual_norm": float(sum(
+                           float(r.double().square().sum())
+                           for r in new_r) ** 0.5)}
+        del st, g, out, new_r
+    return res
+
+
+def checkpoint_check(ctx, state, specs) -> dict:
+    """(h) 4: ``save`` of the ZeRO-3 state from the mesh, then
+    ``restore_onto`` it: every leaf ``torch.equal``."""
+    sspecs = train_state_specs(state, specs, ctx.rules)
+    with tempfile.TemporaryDirectory() as d, dist.use(ctx):
+        t0 = time.perf_counter()
+        ckpt.save(d, int(state["step"]), state,
+                  shardings=dist.named_shardings(ctx, sspecs))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, man = ckpt.restore_onto(d, state, ctx, sspecs)
+        restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(state))
+               if a is not None)
+    require(same and int(man["step"]) == int(state["step"]),
+            "the ZeRO-3 checkpoint did not restore bit for bit")
+    return {"save_s": save_s, "restore_s": restore_s,
+            "bytes": state_bytes(state)}
+
+
+def retrieval_check(ctx) -> dict:
+    """(h) 5: the two-tower bundle's retrieval of N_CAND candidates under
+    the mesh: scores ``torch.equal`` to the same call without it and to
+    phase (g)'s (same seeded init), robe_lookup twice and no other
+    kernel."""
+    cfg = family_config("two-tower-retrieval")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = init_params(cfg, gen, "cuda")
+    rb = retrieval_batch(CtrDataConfig(vocab_sizes=cfg.vocab_sizes,
+                                       batch_size=B_P99, seed=SEED),
+                         0, cfg.n_user_fields, N_CAND)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in rb.items()}
+    with torch.inference_mode():
+        want = serve_scores(params, cfg, batch).cpu()
+        with dist.use(ctx):
+            reset_launches()
+            coll.counts.clear()
+            got = serve_scores(params, cfg, batch).cpu()
+            c, cc = launch_counts(), dict(coll.counts)
+            ms = host_ms(lambda: serve_scores(params, cfg, batch).cpu(),
+                         reps=H_REPS)
+    require(c["robe_lookup"] == 2 and sum(c.values()) == 2,
+            f"retrieval under the mesh launched {c}")
+    require(torch.equal(got, want), f"retrieval under the mesh differs by "
+            f"{float((got - want).abs().max())}")
+    g = G_SCORES.get(cfg.name)
+    require(g is not None and torch.equal(got, g),
+            "retrieval under the mesh differs from phase (g)'s scores")
+    return {"launches": {k: v for k, v in c.items() if v},
+            "collectives": cc, "ms": ms, "shape": list(got.shape)}
+
+
+def mesh_robe_path(ctx, cfg: ServerConfig, params) -> dict:
+    """(h) 1, 3, 4, 5 at full ``dlrm-criteo-tb`` width (|M| = 26,135,627):
+    ZeRO-3 ``score`` at B = 512 (padded) and 262,144 ``torch.equal`` to the
+    replicated unfused path's, one robe_lookup a call and no serve_fused
+    (the fused kernel declines a sharded array); ``z3_steps``;
+    ``compression_check``; ``checkpoint_check``; ``retrieval_check``."""
+    t0 = time.perf_counter()
+    rep = EmbeddingServer(dataclasses.replace(cfg, use_kernel=False),
+                          params={"robe": params}, device="cuda")
+    small = padded_batches((512, 437), B_P99)
+    bulk = padded_batches((B_BULK,), B_BULK)
+    want = [rep.score("robe", b, n) for b, n in small + bulk]
+    with dist.use(ctx):
+        z3 = EmbeddingServer(cfg, params={"robe": params}, device="cuda",
+                             placement={"robe": "model"})
+        got, c, cc = mesh_scores(z3, "robe", small + bulk)
+    calls = len(small) + len(bulk)
+    require(c["robe_lookup"] == calls and c["serve_fused"] == 0 and
+            c["dot_interaction"] == calls and sum(c.values()) == 2 * calls,
+            f"ZeRO-3 score launched {c}; expected robe_lookup and "
+            f"dot_interaction once a call and no serve_fused")
+    require(cc.get("all_gather") == 2 * calls,
+            f"ZeRO-3 score: collectives {cc}; expected the array's gather "
+            f"and the logits' once a call")
+    for (b, n), g, w in zip(small + bulk, got, want):
+        require(np.array_equal(g, w),
+                f"ZeRO-3 score at B={len(b['sparse'])} differs from the "
+                f"replicated path by {np.abs(g - w).max()}")
+    res = {"score": {"launches": {k: v for k, v in c.items() if v},
+                     "collectives": cc,
+                     "ms_512": score_ms_turns(
+                         {"replicated": (rep, None), "zero3": (z3, ctx)},
+                         "robe", *small[0], REPS),
+                     "ms_262144": score_ms_turns(
+                         {"replicated": (rep, None), "zero3": (z3, ctx)},
+                         "robe", *bulk[0], H_REPS),
+                     "profile_512": score_profiles(
+                         {"replicated": (rep, None), "zero3": (z3, ctx)},
+                         "robe", *small[0])}}
+    del rep, z3
+    print(f"(h) ZeRO-3 score equal to the replicated path's; "
+          f"{res['score']['ms_262144']}")
+    mcfg = cfg.recsys_cfg("robe")
+    mcfg = dataclasses.replace(mcfg, robe_shard_model=True)
+    batches = train_batches(B_TRAIN, max(H_STEPS, H_COMPRESSED_STEPS + 1),
+                            "cpu")
+    res["train"], state, specs = z3_steps(ctx, mcfg, params,
+                                          batches[:H_STEPS])
+    print(f"(h) ZeRO-3 steps ok: {res['train']['step_ms']}")
+    res["compression"] = compression_check(ctx, mcfg, state, specs, batches)
+    res["checkpoint"] = checkpoint_check(ctx, state, specs)
+    del state
+    torch.cuda.empty_cache()
+    res["retrieval"] = retrieval_check(ctx)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3185,6 +3569,7 @@ def main() -> int:
     # (g) the rest of the recsys family, and last full against robe at
     # dlrm-rm2 width, with the 52 GB table
     peak = torch.cuda.max_memory_allocated()
+    h_robe = train_params["robe"]         # phase (h)'s ZeRO-3 weights
     del fused, unfused, subs, paths, train_params, memory
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3203,6 +3588,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     tier = rm2_tier(rm2)
     tier["rm2_s"] = time.perf_counter() - t0
+    # (h), first part: a one-rank NCCL mesh; full row-sharded on (e)'s
+    # table before it is freed
+    t_h = time.perf_counter()
+    pg_dir = tempfile.mkdtemp()
+    mesh = one_rank_mesh(pg_dir)
+    mesh_res = {"full": mesh_full_path(mesh, rm2)}
+    mesh_res["full_s"] = time.perf_counter() - t_h
+    t0 += mesh_res["full_s"]               # the tier's wall leaves (h) out
     del rm2
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3220,6 +3613,18 @@ def main() -> int:
     print(f"serving tier ok ({tier['wall_s']:.1f} s); peak memory of the "
           f"phase {tier['max_memory_allocated']} B")
 
+    # (h), the rest: ZeRO-3 robe at full width on the mesh
+    t_h = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_res["robe"] = mesh_robe_path(mesh, cfg, h_robe)
+    del h_robe
+    mesh_res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    mesh_res["wall_s"] = mesh_res["full_s"] + time.perf_counter() - t_h
+    mesh_res["card"] = smi
+    import torch.distributed as tdist
+    tdist.destroy_process_group()
+    print(f"mesh phase ok ({mesh_res['wall_s']:.1f} s)")
+
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],
                 "serve_fused": c_fused["serve_fused"],
@@ -3228,11 +3633,14 @@ def main() -> int:
                    for k in ("robe_lookup_bwd", "dot_interaction_bwd")},
                 **{k + "_bwd": full[kind]["launches"][k + "_bwd"]
                    for kind, k in SUBSTRATES.items()}}
+    launches_mesh = mesh_res["robe"]["train"]["launches"]
     kernels = []
     for k, meta in KERNELS.items():
         row = {"name": k, "route": "cuda", **meta, "launches": launches[k],
                "max_abs_err": err[k]["float32"],
                "max_abs_err_bf16": err[k]["bfloat16"]}
+        if k in TRAIN_KERNELS["robe"]:    # (h)'s ZeRO-3 steps
+            row["launches_mesh"] = launches_mesh[k]
         if "over_a" in err[k]:            # the scatter's error / A
             row["max_err_over_a"] = err[k]["over_a"]["float32"]
             row["max_err_over_a_bf16"] = err[k]["over_a"]["bfloat16"]
@@ -3246,6 +3654,7 @@ def main() -> int:
               **times["serve_fused_bwd"]}
     print(json.dumps({"serve_fused_bwd": sf_bwd}))
     print(json.dumps({"recsys_family": family}))
+    print(json.dumps({"mesh": mesh_res}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ the port's tree with the same keys: dicts, lists, dense ``w`` as
 its numpy dtype: ``qrobe``'s int8 ``codes`` arrive as ``torch.int8``, its
 f32 ``scale`` and ``delta`` as ``torch.float32``.  The same call carries an
 optimizer state or a whole train state (``{"params", "opt", "step"}``)
-across.  ``tree_to_numpy`` is the way back, for comparing trees.
+across.  ``params_onto_mesh`` carries such a tree onto a
+``repro_torch.dist`` mesh: each rank keeps its shards by a spec tree.
+``tree_to_numpy`` is the way back, for comparing trees.
 """
 
 from __future__ import annotations
@@ -31,6 +33,16 @@ def params_from_numpy(tree, device=None):
         return torch.from_numpy(np.array(t)).to(dev)
 
     return walk(tree)
+
+
+def params_onto_mesh(tree, spec_tree, ctx=None, device=None):
+    """``params_from_numpy`` onto a mesh: every rank cuts its shards of the
+    global numpy ``tree`` by ``spec_tree`` (pruned to the mesh) and moves
+    only those to ``device`` (default: the mesh's).  ``ctx``: the active
+    context by default."""
+    from repro_torch.dist import api as dist
+    host = params_from_numpy(tree, "cpu")
+    return dist.place(host, spec_tree, ctx, device=device)
 
 
 def tree_to_numpy(tree):

@@ -6,6 +6,15 @@ All share the embedding front-end (``EmbeddingSpec`` + a registered
 dense features [B, n_dense] float, sparse ids [B, F] int32, labels [B]
 (for ``loss_fn``), all tensors on the model's device.  Outputs are logits
 [B] (CTR models) or retrieval scores [B, n_candidates] (two-tower).
+
+Under an active ``repro_torch.dist`` context the entry points keep the
+JAX package's global view (``dist.api`` contract point 1): ``forward``,
+``loss_fn`` and ``serve_scores`` take the global batch, compute this
+rank's ``flat_batch`` rows (the substrate's ``lookup_dist`` cuts the ids
+and runs its collectives) and return global results: logits and scores
+all-gathered, the mean loss all-reduced.  ``loss_fn``'s gradient is that
+of the rank's own mean loss; ``train.train_loop`` turns it into the
+global one.
 """
 
 from __future__ import annotations
@@ -16,9 +25,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.robe import RobeSpec
+from repro_torch.dist import api as dist
+from repro_torch.dist import collectives as coll
 from repro_torch.nn.core import dense_apply, dense_init, mlp_apply, mlp_init
 from repro_torch.nn.embeddings import (EmbeddingSpec, embedding_init,
-                                       embedding_lookup, get_backend)
+                                       embedding_lookup_dist, get_backend)
 from repro_torch.nn.interactions import (autoint_layer_apply,
                                          autoint_layer_init, bilinear_apply,
                                          bilinear_init, cin_apply, cin_init,
@@ -49,11 +60,15 @@ class RecsysConfig:
     embedding: str = "robe"
     robe_size: int = 0
     robe_block: int = 32
+    robe_shard_model: bool = False   # ZeRO-3 ROBE: array sharded over model,
+    # all-gathered per lookup (arrays beyond a replica's memory)
     hashed_buckets: int = 0          # QR remainder buckets (0 = auto)
     tt_rank: int = 0                 # tensor-train core rank (0 = default)
     #: serve path: True takes the fused serve kernel, False the unfused
     #: lookup -> concat -> dot_interaction kernels
     use_kernel: bool = False
+    full_table_shard: str = "model"  # "model" | "2d" (rows over the whole
+    # mesh: no data-axis all-reduce of the table's gradient)
     compute_dtype: torch.dtype = torch.float32
 
     def embedding_spec(self) -> EmbeddingSpec:
@@ -61,9 +76,15 @@ class RecsysConfig:
         if self.robe_size > 0:
             robe = RobeSpec(size=self.robe_size, block_size=self.robe_block,
                             seed=11)
+        placement = "default"
+        if self.robe_shard_model:
+            placement = "model"
+        elif self.full_table_shard == "2d":
+            placement = "2d"
         return EmbeddingSpec(vocab_sizes=self.vocab_sizes,
                              dim=self.embed_dim, kind=self.embedding,
-                             robe=robe, hashed_buckets=self.hashed_buckets,
+                             robe=robe, placement=placement,
+                             hashed_buckets=self.hashed_buckets,
                              tt_rank=self.tt_rank)
 
     @property
@@ -134,21 +155,36 @@ def init_params(cfg: RecsysConfig, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: RecsysConfig, sparse_ids: torch.Tensor
-           ) -> torch.Tensor:
-    emb = embedding_lookup(params["embedding"], cfg.embedding_spec(),
-                           sparse_ids)
+def _embed(params, cfg: RecsysConfig, sparse_ids: torch.Tensor,
+           fields=None) -> torch.Tensor:
+    # the substrate owns its distributed lookup (the rank's rows, the
+    # collectives): global ids in, this rank's rows out, on the layout of
+    # whoever placed the params
+    live = dist.live_specs()
+    emb = embedding_lookup_dist(params["embedding"], cfg.embedding_spec(),
+                                sparse_ids, compute_dtype=cfg.compute_dtype,
+                                fields=fields,
+                                pspec=None if live is None
+                                else live["embedding"])
     return emb.to(cfg.compute_dtype)
 
 
 def _batch_emb(params, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
-    """[B, F, dim] field embeddings for ``batch``, precomputed or looked
-    up.  A batch carrying ``"emb"`` bypasses the substrate lookup (the
-    serving tier's hot-row cache feeds rows this way)."""
+    """[B, F, dim] field embeddings of the rank's rows of ``batch``,
+    precomputed or looked up.  A batch carrying ``"emb"`` bypasses the
+    substrate lookup (the serving tier's hot-row cache feeds rows this
+    way)."""
     emb = batch.get("emb")
     if emb is not None:
-        return emb.to(cfg.compute_dtype)
+        return dist.rows(emb).to(cfg.compute_dtype)
     return _embed(params, cfg, batch["sparse"])
+
+
+def _batch_size(batch: dict) -> int:
+    for k in ("sparse", "emb", "dense"):
+        if k in batch:
+            return batch[k].shape[0]
+    raise KeyError("a batch needs 'sparse', 'emb' or 'dense'")
 
 
 def _dlrm_interaction(params, cfg: RecsysConfig, batch: dict,
@@ -180,10 +216,18 @@ def forward(params, cfg: RecsysConfig, batch: dict,
     ``serve`` marks the inference path, where the fused serve kernel may
     engage (DLRM).  A batch may carry precomputed ``"emb"`` [B, F, dim];
     it takes precedence over the substrate lookup and the fused kernel.
+    Under a mesh: the global batch in, the global logits out.
     """
+    return dist.gather_rows(_forward_rows(params, cfg, batch, serve),
+                            _batch_size(batch))
+
+
+def _forward_rows(params, cfg: RecsysConfig, batch: dict,
+                  serve: bool = False) -> torch.Tensor:
+    """The logits of this rank's rows of the global ``batch``."""
     a = cfg.arch
     if a == "dlrm":
-        dense = batch["dense"].to(cfg.compute_dtype)
+        dense = dist.rows(batch["dense"]).to(cfg.compute_dtype)
         bot = mlp_apply(params["bot"], dense, final_act=torch.relu)
         inter = _dlrm_interaction(params, cfg, batch, bot, serve)
         top_in = torch.cat([bot, inter], dim=-1)
@@ -223,9 +267,8 @@ def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
     return x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(1e-6)
 
 
-def tower_vectors(params, cfg: RecsysConfig, batch: dict
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """two-tower: -> (user [B,D], item [B,D]), L2-normalized."""
+def _tower_rows(params, cfg: RecsysConfig, batch: dict
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     emb = _embed(params, cfg, batch["sparse"])
     b = emb.shape[0]
     ku = cfg.n_user_fields
@@ -234,24 +277,28 @@ def tower_vectors(params, cfg: RecsysConfig, batch: dict
     return _l2_normalize(u), _l2_normalize(v)
 
 
+def tower_vectors(params, cfg: RecsysConfig, batch: dict
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """two-tower: -> (user [B,D], item [B,D]), L2-normalized."""
+    n = _batch_size(batch)
+    return tuple(dist.gather_rows(x, n)
+                 for x in _tower_rows(params, cfg, batch))
+
+
 def serve_scores(params, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
     """Online/bulk inference: logits [B] (CTR) or retrieval scores
     [B, n_candidates] of the queries ``batch["sparse"]`` against the item
     fields' ids ``batch["cand_sparse"]`` (two-tower)."""
     if cfg.arch == "two_tower":
-        emb_spec = cfg.embedding_spec()
         u, _ = tower_vectors(params, cfg, batch)
         item_fields = tuple(range(cfg.n_user_fields, cfg.n_fields))
-        cand = embedding_lookup(
-            params["embedding"], emb_spec,
-            batch["cand_sparse"].reshape(-1, len(item_fields)),
-            fields=item_fields)
-        n = cand.shape[0]
-        # the JAX package shards the candidates over its mesh here; on one
-        # device that is nothing (module item 6, distribution)
-        vi = mlp_apply(params["item"],
-                       cand.to(cfg.compute_dtype).reshape(n, -1))
-        return u @ _l2_normalize(vi).T              # [B, n_candidates]
+        ids = batch["cand_sparse"].reshape(-1, len(item_fields))
+        # each rank scores its slice of the candidates (the JAX package
+        # shards them over its mesh), then the slices are all-gathered
+        cand = _embed(params, cfg, ids, fields=item_fields)
+        vi = mlp_apply(params["item"], cand.reshape(cand.shape[0], -1))
+        scores = u @ _l2_normalize(vi).T        # [B, rank's candidates]
+        return dist.gather_rows(scores, ids.shape[0], dim=1)
     return forward(params, cfg, batch, serve=True)
 
 
@@ -263,17 +310,34 @@ def loss_fn(params, cfg: RecsysConfig, batch: dict) -> Tuple[torch.Tensor,
     in-batch sampled softmax of the ×20 user-item cosines, each user's own
     item the gold; returns (loss, {"loss": loss})."""
     if cfg.arch == "two_tower":
-        u, v = tower_vectors(params, cfg, batch)
-        logits = (u @ v.T) * 20.0               # in-batch sampled softmax
+        n = _batch_size(batch)
+        u, v = _tower_rows(params, cfg, batch)
+        # in-batch sampled softmax against every item of the global batch
+        logits = (u @ dist.gather_rows(v, n).T) * 20.0
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.diagonal(logits)
-        loss = (lse - gold).mean()
+        ctx = dist.current()
+        lo = 0 if ctx is None else dist.batch_rows(ctx, n).start
+        gold = torch.diagonal(logits, offset=lo)
+        loss = _global_mean((lse - gold).mean(), n)
         return loss, {"loss": loss}
-    logits = forward(params, cfg, batch)
-    y = batch["label"].to(torch.float32)
+    logits = _forward_rows(params, cfg, batch)
+    y = dist.rows(batch["label"]).to(torch.float32)
     ce = torch.mean(torch.clamp_min(logits, 0) - logits * y
                     + torch.log1p(torch.exp(-torch.abs(logits))))
+    ce = _global_mean(ce, _batch_size(batch))
     return ce, {"logloss": ce}
+
+
+def _global_mean(local: torch.Tensor, n: int) -> torch.Tensor:
+    """The global mean loss as the value, the rank's own mean loss as the
+    gradient (``dist.api`` contract point 4): the mean of the ranks' means
+    when the batch splits, else every rank's own value."""
+    ctx = dist.current()
+    if ctx is None or not dist.batch_split(ctx, n):
+        return local
+    total = coll.all_reduce_(local.detach().clone(), ctx,
+                             ctx.mesh.axis_names)
+    return local + (total / ctx.n_devices - local).detach()
 
 
 def make_project_fn(cfg: RecsysConfig):

@@ -8,11 +8,17 @@ row lookups.
 * ``init(generator, spec, device, pad_rows_to)`` -> parameter dict
 * ``lookup(params, spec, idx, fields)`` -> [B, F', dim] embeddings
 * ``lookup_bag(params, spec, idx, ...)``-> pooled multi-hot lookups
+* ``lookup_dist(params, spec, idx, pspec=)`` -> the distributed lookup
+  under the active ``repro_torch.dist`` context, on the parameters' live
+  layout ``pspec``: global ids in, the rank's rows
+  (``dist.api.batch_rows``) out; the collectives live in the backend
+* ``param_specs(spec, rules, mesh=None)`` -> the ``P`` tree of the
+  parameters (``mesh`` re-resolves the layout against a concrete,
+  possibly degraded, mesh: the elastic re-slice contract)
 * ``cost(spec, batch)``                 -> {"params", "bytes_fetched",
   "flops"}, the substrate's own cost model
 
-``get_backend(name)`` is the only dispatch point.  Distribution
-(``lookup_dist``, ``param_specs``) is not ported yet.
+``get_backend(name)`` is the only dispatch point.
 """
 
 from __future__ import annotations
@@ -21,12 +27,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+# the axis-normalization helpers live in dist.api (the spec trees the
+# backends build must agree with the ones prune_specs re-resolves)
+from repro_torch.dist.api import (axes_entry, axes_on_mesh,  # noqa: F401
+                                  axes_tuple)
+
 #: backends of the JAX package that this package does not have yet
 NOT_YET_PORTED: Tuple[str, ...] = ()
 
 
 class EmbeddingBackend:
-    """Base class: generic bag pooling."""
+    """Base class: generic bag pooling + replicated-local distribution."""
 
     name: str = ""
     #: optional serve fast path: a backend that fuses lookup -> bag pooling
@@ -92,6 +103,27 @@ class EmbeddingBackend:
         elif combiner != "sum":
             raise ValueError(f"unknown combiner {combiner}")
         return out
+
+    def lookup_dist(self, params: dict, spec, idx: torch.Tensor, *,
+                    compute_dtype=None,
+                    fields: Optional[Tuple[int, ...]] = None,
+                    pspec: Optional[dict] = None) -> torch.Tensor:
+        """Lookup under the active DistContext (no context: local).
+
+        ``idx`` is the global [B, F'] id batch; the result is the rank's
+        rows of it (``dist.api.batch_rows``).  ``pspec``: the live ``P``
+        dict of ``params`` (None: ``param_specs`` on the current mesh).
+        Default: the parameters are replicated and the lookup is local on
+        those rows -- no embedding collective.
+        """
+        from repro_torch.dist import api as dist
+        return self.lookup(params, spec, dist.rows(idx), fields)
+
+    def param_specs(self, spec, rules: Dict, mesh=None) -> dict:
+        """``P`` tree matching ``init``'s parameter dict; ``mesh`` drops
+        the axes a degraded mesh no longer carries (shape divisibility on
+        the survivors is ``dist.api.prune_specs``'s job)."""
+        raise NotImplementedError
 
     def param_count(self, spec) -> int:
         raise NotImplementedError

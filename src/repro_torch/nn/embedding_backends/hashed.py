@@ -27,6 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.api import P
 from repro_torch.kernels.ops import qr_lookup
 from repro_torch.nn.embedding_backends.base import (EmbeddingBackend,
                                                     register_backend)
@@ -107,6 +108,11 @@ class HashedBackend(EmbeddingBackend):
         c = np.asarray(candidates, np.int64).ravel()
         return (np.isin(c // m, np.unique(t // m))
                 | np.isin(c % m, np.unique(t % m)))
+
+    def param_specs(self, spec, rules, mesh=None) -> dict:
+        # replicated on every mesh: a degraded mesh changes nothing, the
+        # elastic restore re-broadcasts both tables to the survivors
+        return {"q_table": P(), "r_table": P()}
 
     def param_count(self, spec) -> int:
         m = _m(spec)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.robe import init_memory
+from repro_torch.dist.api import P
 from repro_torch.kernels.ops import qrobe_lookup
 from repro_torch.nn.embedding_backends.base import (EmbeddingBackend,
                                                     register_backend)
@@ -116,6 +117,11 @@ class QRobeBackend(EmbeddingBackend):
         return qrobe_lookup(params["codes"], params["scale"], idx, fields,
                             spec.dim, spec.robe, GROUP_LOG2,
                             delta=params["delta"])
+
+    def param_specs(self, spec, rules, mesh=None) -> dict:
+        # codes and scales are small (a quarter of the f32 robe array's
+        # bytes): replicated everywhere, like the default robe placement
+        return {"codes": P(), "scale": P(), "delta": P()}
 
     def param_count(self, spec) -> int:
         # the serving model: int8 codes + per-group scales; delta is a

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.api import P
 from repro_torch.kernels.ops import tt_lookup
 from repro_torch.nn.embedding_backends.base import (EmbeddingBackend,
                                                     register_backend)
@@ -85,6 +86,11 @@ class TensorTrainBackend(EmbeddingBackend):
         return tt_lookup(params["core0"], params["core1"], params["core2"],
                          idx, tuple(int(spec.offsets[f]) for f in fields),
                          factors, spec.dim)
+
+    def param_specs(self, spec, rules, mesh=None) -> dict:
+        # replicated on every mesh: a degraded mesh changes nothing, the
+        # elastic restore re-broadcasts the cores to the survivors
+        return {"core0": P(), "core1": P(), "core2": P()}
 
     def param_count(self, spec) -> int:
         (n1, n2, n3), (d1, d2, d3), r = _dims(spec)

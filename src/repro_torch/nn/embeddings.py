@@ -3,8 +3,8 @@
 
 Every substrate is an ``EmbeddingBackend`` registered by name and selected
 via ``EmbeddingSpec.kind``; ``get_backend(spec.kind)`` is the only
-dispatch point.  ``embedding_lookup`` / ``embedding_lookup_bag`` are thin
-wrappers over the backend.
+dispatch point.  ``embedding_lookup`` / ``embedding_lookup_bag`` /
+``embedding_lookup_dist`` are thin wrappers over the backend.
 """
 
 from __future__ import annotations
@@ -18,9 +18,13 @@ import torch
 
 from repro_torch.core.robe import RobeSpec
 from repro_torch.nn.embedding_backends import backend_names, get_backend
+from repro_torch.nn.embedding_backends.full import full_lookup_sharded_body
+from repro_torch.nn.embedding_backends.robe import robe_allgather_body
 
 __all__ = ["EmbeddingSpec", "embedding_init", "embedding_lookup",
-           "embedding_lookup_bag", "get_backend", "backend_names"]
+           "embedding_lookup_bag", "embedding_lookup_dist", "get_backend",
+           "backend_names", "full_lookup_sharded_body",
+           "robe_allgather_body"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,3 +95,16 @@ def embedding_lookup_bag(params: dict, spec: EmbeddingSpec,
     return get_backend(spec.kind).lookup_bag(params, spec, idx,
                                              combiner=combiner,
                                              weights=weights)
+
+
+def embedding_lookup_dist(params: dict, spec: EmbeddingSpec,
+                          idx: torch.Tensor, compute_dtype=None,
+                          fields: Optional[Tuple[int, ...]] = None,
+                          pspec: Optional[dict] = None) -> torch.Tensor:
+    """Distributed lookup under the active ``repro_torch.dist`` context:
+    the global ids ``idx`` in, this rank's rows out (a local lookup outside
+    a context).  ``pspec``: the live ``P`` dict of ``params`` (None: the
+    backend's own layout).  The collectives live in the backends."""
+    return get_backend(spec.kind).lookup_dist(params, spec, idx,
+                                              compute_dtype=compute_dtype,
+                                              fields=fields, pspec=pspec)

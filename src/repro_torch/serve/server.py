@@ -26,6 +26,15 @@ rows, and the cache never counts the padded tail.
 ``push`` hot-swaps a substrate's parameters to a publish of an
 ``OnlineTrainer`` (``train/checkpoint.py``'s ``restore_delta``) and
 reconciles the cache with the publish's touched-row manifest.
+
+Under an active ``repro_torch.dist`` context the server holds each
+substrate's shards by its spec tree (``dist.param_specs.recsys_specs``,
+pruned to the mesh; ``EmbeddingServer``'s ``placement`` chooses the
+ZeRO-3 array and the 2d table), and every rank calls ``score`` with
+the same global batch: the scorers pick up the mesh through each
+backend's own ``lookup_dist`` / ``fused_serve`` and return the global
+scores.  A row-sharded table declines the hot-row cache (its rows are
+not on one rank).
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import api as dist
+from repro_torch.dist.param_specs import recsys_specs
 from repro_torch.models.recsys import RecsysConfig, init_params, serve_scores
 from repro_torch.nn.embeddings import get_backend
 from repro_torch.serve.hot_cache import HotRowCache
@@ -100,6 +111,16 @@ class PushReport:
     wall_s: float
 
 
+def _placed_cfg(rc: RecsysConfig, placement: Optional[str]) -> RecsysConfig:
+    if placement is None:
+        return rc
+    if rc.embedding == "robe" and placement == "model":
+        return dataclasses.replace(rc, robe_shard_model=True)
+    if rc.embedding == "full" and placement in ("model", "2d"):
+        return dataclasses.replace(rc, full_table_shard=placement)
+    raise ValueError(f"no placement {placement!r} for {rc.embedding}")
+
+
 def _host(x) -> np.ndarray:
     """A batch array as numpy (a tensor is copied to the host)."""
     if isinstance(x, torch.Tensor):
@@ -112,25 +133,47 @@ class EmbeddingServer:
 
     Each substrate gets its own parameters: ``params[name]`` when given
     (e.g. carried from the JAX package by ``convert.params_from_numpy``),
-    else ``init_params`` from a generator seeded ``cfg.seed + i``.
+    else ``init_params`` from a generator seeded ``cfg.seed + i``.  Under
+    a mesh they are global trees, cut here to the rank's shards;
+    ``placement`` maps a backend to its embedding placement there (robe
+    ``"model"``: the ZeRO-3 array; full ``"model"`` (its default) or
+    ``"2d"``).
     """
 
     def __init__(self, cfg: ServerConfig,
-                 params: Optional[Dict[str, dict]] = None, device=None):
+                 params: Optional[Dict[str, dict]] = None, device=None,
+                 placement: Optional[Dict[str, str]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self._cfgs: Dict[str, RecsysConfig] = {}
         self._params: Dict[str, dict] = {}
         self._caches: Dict[str, Optional[HotRowCache]] = {}
+        self._specs: Dict[str, object] = {}
+        ctx = dist.current()
         for i, name in enumerate(cfg.backends):
-            rc = cfg.recsys_cfg(name)
+            rc = _placed_cfg(cfg.recsys_cfg(name), (placement or {}).get(
+                name))
             self._cfgs[name] = rc
             if params is not None:
-                self._params[name] = params[name]
+                p = params[name]
             else:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(cfg.seed + i)
-                self._params[name] = init_params(rc, gen, self.device)
+                p = init_params(rc, gen, self.device)
+            if ctx is not None:
+                specs = dist.prune_specs(
+                    recsys_specs(p, ctx.rules, rc.embedding_spec(),
+                                 mesh=ctx.mesh), p, ctx.mesh)
+                self._specs[name] = specs
+                p = dist.place(p, specs, ctx, device=self.device)
+                if cfg.cache_capacity > 0 and get_backend(
+                        name).cacheable_rows is not None and any(
+                        len(s) and s[0] is not None
+                        for s in specs["embedding"].values()):
+                    raise ValueError(f"{name}: a row-sharded substrate "
+                                     f"declines the hot-row cache; set "
+                                     f"cache_capacity=0")
+            self._params[name] = p
             cache = None
             if cfg.cache_capacity > 0:
                 # the cache gathers through the embedding-layer subtree —
@@ -190,7 +233,7 @@ class EmbeddingServer:
         else:
             tb = {"dense": dense,
                   "sparse": torch.as_tensor(batch["sparse"]).to(self.device)}
-        with torch.inference_mode():
+        with torch.inference_mode(), dist.placed(self._specs.get(backend)):
             out = serve_scores(self._params[backend], self._cfgs[backend],
                                tb)
         out = out.cpu().numpy()
@@ -238,8 +281,12 @@ class EmbeddingServer:
         if ckpt_dir is None:
             raise ValueError("push: no ckpt_dir given and cfg.model_dir "
                              "is unset")
+        shardings = None
+        if backend in self._specs:
+            shardings = dist.named_shardings(dist.current(),
+                                             self._specs[backend])
         restored = ckpt_lib.restore_delta(ckpt_dir, self._params[backend],
-                                          step=step)
+                                          step=step, shardings=shardings)
         if restored is None:
             raise FileNotFoundError(
                 f"push: no restorable publish in {ckpt_dir}"

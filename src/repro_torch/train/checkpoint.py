@@ -38,8 +38,18 @@ Where the packages differ:
   dtype (the 0-d int32 ``step`` too), where the JAX package returns host
   numpy arrays.
 
-Restoring onto a mesh (``restore_onto``, ``shardings=``) comes with the
-port of distribution (ROADMAP module item 6).
+Under a ``repro_torch.dist`` context the format stays the JAX package's:
+**global** arrays.  ``save`` (and ``AsyncCheckpointer.save``) gathers
+each sharded leaf by its ``shardings`` (a collective: every rank calls
+it), rank 0 of the mesh writes, and every rank passes a barrier after
+the write (``AsyncCheckpointer``: in the next ``wait``), so a later
+restore on any rank reads the finished files and only one process ever
+renames a ``tmp-*`` directory.  The barrier carries the write's outcome:
+a failed write raises on every rank.  Restoring with ``shardings`` (a tree of
+``dist.api.Sharding``, as ``dist.api.named_shardings`` builds) cuts each
+global leaf to the rank's shard; ``restore_onto`` first prunes a spec
+tree against the checkpoint's global shapes and the (possibly degraded)
+mesh.
 """
 
 from __future__ import annotations
@@ -54,7 +64,9 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves, unflatten
+from repro_torch.dist import api as dist
+from repro_torch.dist import collectives as coll
+from repro_torch.tree import leaves, leaves_up_to, unflatten
 
 _BF16 = "bfloat16"
 
@@ -93,9 +105,42 @@ def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes())
 
 
-def _snapshot(tree) -> list:
-    """[(host array, dtype name)] of the tree's non-``None`` leaves."""
+def _snapshot(tree, shardings=None) -> list:
+    """[(host array, dtype name)] of the tree's non-``None`` leaves, each
+    sharded leaf gathered whole by its sharding."""
+    if shardings is not None:
+        sh = _flat_shardings(tree, shardings)
+        tree = unflatten(tree, [x if (x is None or s is None) else
+                                s.gather(x)
+                                for x, s in zip(leaves(tree), sh)])
     return [_host(x) for x in _flatten(tree)[0]]
+
+
+def _flat_shardings(tree, shardings) -> list:
+    """The sharding of each leaf of ``tree`` (None: whole)."""
+    flat = leaves(tree)
+    try:
+        sh = leaves_up_to(tree, shardings)
+    except ValueError as e:
+        raise ValueError(f"shardings tree is not congruent with the state "
+                         f"({e}): it would cut the wrong leaves") from None
+    if len(sh) != len(flat):
+        raise ValueError(f"shardings tree has {len(sh)} leaves, state has "
+                         f"{len(flat)}")
+    return sh
+
+
+def _writer(shardings):
+    """(the context whose rank 0 writes, whether this rank writes)."""
+    ctx = dist.current()
+    if shardings is not None:
+        for s in leaves(shardings):
+            if s is not None:
+                ctx = s.ctx
+                break
+    if ctx is None:
+        return None, True
+    return ctx, ctx.index(ctx.mesh.axis_names) == 0
 
 
 def _write(tmp: str, final: str, manifest: dict, arrays: dict) -> None:
@@ -135,11 +180,26 @@ def _save_snapshot(ckpt_dir: str, step: int, snap: list, structure: str,
 
 
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
-         keep_last: int = 3) -> str:
+         keep_last: int = 3, shardings=None) -> str:
     """Synchronous atomic checkpoint of ``tree`` (tensors, on any device,
-    or numpy arrays). Returns the final path."""
-    return _save_snapshot(ckpt_dir, step, _snapshot(tree), _structure(tree),
-                          extra, keep_last)
+    or numpy arrays). Returns the final path.  Under a mesh, the leaves
+    are gathered by ``shardings`` (None: every leaf whole on every rank),
+    rank 0 writes, and every rank waits for the write."""
+    ctx, writes = _writer(shardings)
+    snap = _snapshot(tree, shardings)
+    final = os.path.join(ckpt_dir, f"step-{step:010d}")
+    err = None
+    if writes:
+        try:
+            final = _save_snapshot(ckpt_dir, step, snap, _structure(tree),
+                                   extra, keep_last)
+        except Exception as e:
+            err = e
+    if ctx is not None:
+        err = coll.agree_failure(err, ctx)
+    if err is not None:
+        raise err
+    return final
 
 
 class AsyncCheckpointer:
@@ -149,14 +209,21 @@ class AsyncCheckpointer:
         self.ckpt_dir = ckpt_dir
         self.keep_last = keep_last
         self._thread: Optional[threading.Thread] = None
+        self._ctx = None
         self.last_error: Optional[BaseException] = None
 
-    def save(self, step: int, tree, extra: Optional[dict] = None) -> None:
+    def save(self, step: int, tree, extra: Optional[dict] = None,
+             shardings=None) -> None:
         """Copy ``tree`` to the host now (a synchronous device-to-host
-        copy, so the next step may update the tensors in place), then
-        write it on a thread."""
+        copy, so the next step may update the tensors in place; under a
+        mesh, the gather of the sharded leaves by ``shardings``, a
+        collective, on the calling thread), then write it on a thread (on
+        rank 0 of the mesh only)."""
         self.wait()
-        snap, structure = _snapshot(tree), _structure(tree)
+        self._ctx, writes = _writer(shardings)
+        snap, structure = _snapshot(tree, shardings), _structure(tree)
+        if not writes:
+            return
 
         def work():
             try:
@@ -169,11 +236,18 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Join the write and raise its error; under a mesh every rank
+        then passes a barrier (so no rank reads a checkpoint before it is
+        renamed) that carries the writer's outcome, so that a failed write
+        raises on every rank, not on rank 0 alone."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self.last_error is not None:
-            err, self.last_error = self.last_error, None
+        err, self.last_error = self.last_error, None
+        if self._ctx is not None:
+            ctx, self._ctx = self._ctx, None
+            err = coll.agree_failure(err, ctx)
+        if err is not None:
             raise err
 
 
@@ -195,9 +269,12 @@ def _checked(data, path: str, meta: dict) -> np.ndarray:
     return arr
 
 
-def _to_tensor(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
+def _to_tensor(arr: np.ndarray, dtype: str, like,
+               sharding=None) -> torch.Tensor:
     """A stored leaf as a tensor on ``like``'s device with its dtype (a
-    template leaf that is no tensor: on the CPU, in the stored dtype)."""
+    template leaf that is no tensor: on the CPU, in the stored dtype);
+    with a ``sharding``, the rank's shard of it (the template may hold
+    another mesh's shards: its shape is not checked)."""
     if dtype == _BF16 or arr.dtype.kind == "V":
         if arr.dtype.itemsize != 2:
             raise IOError(f"a bfloat16 leaf stored as {arr.dtype}")
@@ -205,25 +282,34 @@ def _to_tensor(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
                              ).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
+    if sharding is not None:
+        t = sharding.cut(t)
     if isinstance(like, torch.Tensor):
-        if tuple(t.shape) != tuple(like.shape):
+        if sharding is None and tuple(t.shape) != tuple(like.shape):
             raise IOError(f"a leaf of shape {tuple(t.shape)} where the "
                           f"template has {tuple(like.shape)}")
         t = t.to(device=like.device, dtype=like.dtype)
     return t
 
 
-def _rebuild(template, arrays: list, dtypes: list) -> Any:
+def _rebuild(template, arrays: list, dtypes: list,
+             shardings=None) -> Any:
     """``template``'s structure with the stored leaves in place of its
-    non-``None`` leaves (``None`` stays ``None``)."""
+    non-``None`` leaves (``None`` stays ``None``), cut by ``shardings``."""
     flat = leaves(template)
-    live = [x for x in flat if x is not None]
+    sh = ([None] * len(flat) if shardings is None
+          else _flat_shardings(template, shardings))
+    live = [(x, s) for x, s in zip(flat, sh) if x is not None]
     if len(live) != len(arrays):
         raise IOError(f"{len(arrays)} stored leaves, the template has "
                       f"{len(live)}")
     it = iter(zip(arrays, dtypes, live))
-    return unflatten(template, [None if x is None else _to_tensor(*next(it))
-                                for x in flat])
+
+    def one():
+        arr, dtype, (like, s) = next(it)
+        return _to_tensor(arr, dtype, like, s)
+
+    return unflatten(template, [None if x is None else one() for x in flat])
 
 
 def _read_leaves(path: str) -> Tuple[list, list, dict]:
@@ -234,16 +320,12 @@ def _read_leaves(path: str) -> Tuple[list, list, dict]:
     return arrays, [m["dtype"] for m in manifest["leaves"]], manifest
 
 
-def _verify_and_load(path: str, template) -> Tuple[Any, dict]:
+def _verify_and_load(path: str, template,
+                     shardings=None) -> Tuple[Any, dict]:
     arrays, dtypes, manifest = _read_leaves(path)
-    return _rebuild(template, arrays, dtypes), manifest
-
-
-def _no_shardings(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings is not yet ported: it comes with the "
-            "port of distribution (ROADMAP module item 6)")
+    if callable(shardings):
+        shardings = shardings(manifest)
+    return _rebuild(template, arrays, dtypes, shardings), manifest
 
 
 def restore_latest(ckpt_dir: str, template, shardings=None,
@@ -252,9 +334,12 @@ def restore_latest(ckpt_dir: str, template, shardings=None,
     ``template``'s structure: (tree, manifest), or None when there is none.
 
     ``step``: pin a specific snapshot instead of the newest.
-    ``shardings``: not yet ported (ROADMAP module item 6); raises.
+    ``shardings``: a tree of ``dist.api.Sharding`` (or None leaves: whole)
+    congruent with ``template``; each global leaf is cut to the rank's
+    shard (the elastic resume onto a mesh).
     """
-    _no_shardings(shardings)
+    if shardings is not None and not callable(shardings):
+        _flat_shardings(template, shardings)      # raises when not congruent
     if not os.path.isdir(ckpt_dir):
         return None
     steps = sorted((d for d in os.listdir(ckpt_dir)
@@ -263,10 +348,37 @@ def restore_latest(ckpt_dir: str, template, shardings=None,
         steps = [d for d in steps if d == f"step-{step:010d}"]
     for d in steps:
         try:
-            return _verify_and_load(os.path.join(ckpt_dir, d), template)
+            return _verify_and_load(os.path.join(ckpt_dir, d), template,
+                                    shardings)
         except Exception:
             continue                         # corrupted -> try the previous
     return None
+
+
+def _manifest_shapes(manifest: dict, template):
+    """The checkpoint's global leaf shapes in ``template``'s structure."""
+    shapes = iter(dist.Shape(tuple(m["shape"])) for m in manifest["leaves"])
+    return unflatten(template, [None if x is None else next(shapes)
+                                for x in leaves(template)])
+
+
+def restore_onto(ckpt_dir: str, template, ctx, spec_tree,
+                 step: Optional[int] = None) -> Optional[Tuple[Any, dict]]:
+    """Elastic resume: restore the newest checkpoint onto ``ctx``'s mesh.
+
+    ``spec_tree`` is the ``P`` tree for ``template`` under the new
+    context's rules.  The specs are first re-resolved against the mesh and
+    the checkpoint's global shapes (``dist.api.prune_specs``: axes the
+    mesh no longer carries or no longer divides fall back to replicated),
+    then every leaf is cut to the rank's shard.
+    """
+    def shardings(manifest):
+        specs = dist.prune_specs(spec_tree,
+                                 _manifest_shapes(manifest, template),
+                                 ctx.mesh)
+        return dist.named_shardings(ctx, specs)
+
+    return restore_latest(ckpt_dir, template, shardings=shardings, step=step)
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +493,8 @@ def _apply_delta(arrays: list, dtypes: list, path: str,
     return out, out_dt
 
 
-def _restore_chain(ckpt_dir: str, path: str, template) -> Tuple[Any, dict]:
+def _restore_chain(ckpt_dir: str, path: str, template,
+                   shardings=None) -> Tuple[Any, dict]:
     """A delta at ``path``: walk its ``base_step`` links down to a full
     snapshot, then apply the deltas oldest to newest."""
     chain = [(path, _load_manifest(path))]
@@ -407,7 +520,7 @@ def _restore_chain(ckpt_dir: str, path: str, template) -> Tuple[Any, dict]:
         chain_meta.append({"step": dman["step"],
                            "base_step": dman["base_step"],
                            "touched": dman.get("touched", {})})
-    tree = _rebuild(template, arrays, dtypes)
+    tree = _rebuild(template, arrays, dtypes, shardings)
     manifest = dict(chain[0][1], chain=chain_meta,
                     touched={k: sorted(v) for k, v in merged.items()},
                     base_full_step=base_full_step)
@@ -428,9 +541,10 @@ def restore_delta(ckpt_dir: str, template, step: Optional[int] = None,
 
     Unreadable candidates (a bad CRC, a broken chain) are skipped, falling
     back to the next-newest snapshot, as ``restore_latest`` does.
-    ``shardings``: not yet ported (ROADMAP module item 6); raises.
+    ``shardings``: as ``restore_latest``'s.
     """
-    _no_shardings(shardings)
+    if shardings is not None:
+        _flat_shardings(template, shardings)      # raises when not congruent
     if not os.path.isdir(ckpt_dir):
         return None
     snaps = _list_snapshots(ckpt_dir)[::-1]          # newest first
@@ -440,11 +554,11 @@ def restore_delta(ckpt_dir: str, template, step: Optional[int] = None,
         path = os.path.join(ckpt_dir, d)
         try:
             if kind == "full":
-                tree, manifest = _verify_and_load(path, template)
+                tree, manifest = _verify_and_load(path, template, shardings)
                 return tree, dict(manifest, delta=False, chain=[],
                                   touched=manifest.get("touched", {}),
                                   base_full_step=snap_step)
-            return _restore_chain(ckpt_dir, path, template)
+            return _restore_chain(ckpt_dir, path, template, shardings)
         except Exception:
             continue                     # corrupted or broken -> previous
     return None

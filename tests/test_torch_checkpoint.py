@@ -146,12 +146,34 @@ def test_keep_last_gc(tmp_path):
 
 
 def test_shardings_wait_for_distribution(tmp_path):
+    """Restoring with ``shardings`` cuts each global leaf to the rank's
+    shard (here rank (1, 0) of a (2, 2) mesh, whose coordinates are all a
+    cut reads), a ``None`` sharding keeps the leaf whole, and
+    ``restore_onto`` prunes the specs against the checkpoint's global
+    shapes first (6 rows do not divide 4 ranks: replicated)."""
+    import types
+
+    from repro_torch.dist import api as dist
+    from repro_torch.dist.api import P
     d = str(tmp_path)
     ck.save(d, 1, _t0())
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 2, "model": 2},
+                                 coords={"data": 1, "model": 0})
+    ctx = dist.DistContext(mesh=mesh, rules=dist.default_rules())
+    shardings = {"a": dist.Sharding(ctx, P("data")),
+                 "b": dist.Sharding(ctx, P(None, None)), "c": None}
     for fn in (ck.restore_latest, ck.restore_delta):
-        with pytest.raises(NotImplementedError, match="module item 6"):
-            fn(d, _t0(), shardings={})
-    assert not hasattr(ck, "restore_onto")
+        got, _ = fn(d, _t0(), shardings=shardings)
+        assert torch.equal(got["a"], torch.arange(3, 6, dtype=torch.float32))
+        assert torch.equal(got["b"], _t0()["b"])
+        assert torch.equal(got["c"], _t0()["c"])
+        with pytest.raises(ValueError, match="congruent"):
+            fn(d, _t0(), shardings={"a": None})
+    got, _ = ck.restore_onto(d, _t0(), ctx, {"a": P(("data", "model")),
+                                             "b": P("model"), "c": P()})
+    assert torch.equal(got["a"], _t0()["a"])          # 6 % 4: replicated
+    assert torch.equal(got["b"], _t0()["b"][:1])      # 2 % 2: model 0
 
 
 def test_async_save_snapshots_before_returning(tmp_path):

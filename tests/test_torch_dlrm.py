@@ -150,11 +150,23 @@ def test_server_refuses_what_is_not_ported():
                         device="cpu")
     assert get_backend("robe").cacheable_rows is None   # robe declines it
     spec = srv.recsys_config("full").embedding_spec()
-    for fn in (lambda: get_backend("full").lookup_dist(
-                   srv.params("full")["embedding"], spec, None),
-               lambda: get_backend("full").param_specs(spec, {})):
-        with pytest.raises(NotImplementedError, match="module item 6"):
-            fn()
+    # the row-sharded layout and lookup are ported: outside a mesh the
+    # distributed lookup is the local one, and the layout is JAX's
+    from repro.dist.api import default_rules as j_default_rules
+    from repro_torch.dist.api import default_rules
+    ids = torch.from_numpy(batch["sparse"])
+    emb = srv.params("full")["embedding"]
+    assert torch.equal(get_backend("full").lookup_dist(emb, spec, ids),
+                       get_backend("full").lookup(emb, spec, ids))
+    jspec = dataclasses.replace(
+        srv.recsys_config("full"), compute_dtype=None)
+    assert tuple(get_backend("full").param_specs(
+        spec, default_rules())["table"]) == tuple(
+        j_get_backend("full").param_specs(jrec.RecsysConfig(
+            **{f.name: getattr(jspec, f.name)
+               for f in dataclasses.fields(jspec)
+               if f.name != "compute_dtype"}).embedding_spec(),
+            j_default_rules())["table"]) == ("model", None)
     # push and warm_caches are ported (the serving tier): a push needs a
     # publish dir, and warming a server without caches does nothing
     with pytest.raises(ValueError, match="model_dir"):
@@ -239,8 +251,10 @@ def test_embedding_spec_validation():
         kw.update(bad)
         with pytest.raises(ValueError):
             EmbeddingSpec(**kw)
-    with pytest.raises(NotImplementedError):
-        EmbeddingSpec(vocab_sizes=(3,), dim=8, robe=robe, placement="model")
+    # the ZeRO-3 placement is ported: it builds, and the fused serve
+    # kernel declines it (the array is sharded over model)
+    z3 = EmbeddingSpec(vocab_sizes=(3,), dim=8, robe=robe, placement="model")
+    assert get_backend("robe").fused_serve({}, z3, None, None) is None
 
 
 @pytest.mark.parametrize("drift_period,multi_hot", [(0, 0), (3, 2)])

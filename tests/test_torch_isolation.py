@@ -36,6 +36,21 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("package", ["dist", "launch"])
+def test_distribution_packages_are_covered(package):
+    """The distribution packages (the stand-ins for ``repro.dist`` and
+    ``repro.launch.mesh``) are among the files held above, and import
+    ``torch.distributed``, never JAX's sharding."""
+    files = [p for p in FILES if p.parent == PORT / package]
+    assert {p.name for p in files} >= {"__init__.py", "mesh.py"
+                                       if package == "launch" else "api.py"}
+    roots = set()
+    for p in files:
+        roots |= set(_imported_roots(p))
+    assert not roots & set(FORBIDDEN), roots
+    assert "torch" in roots or package == "launch"
+
+
 def test_importing_the_port_leaves_jax_unloaded():
     mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
                   .removesuffix(".__init__") for p in PORT.rglob("*.py"))
@@ -52,3 +67,5 @@ def test_importing_the_port_leaves_jax_unloaded():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 20
+    assert {"repro_torch.dist.api", "repro_torch.dist.collectives",
+            "repro_torch.launch.mesh"} <= set(mods)

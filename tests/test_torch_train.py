@@ -531,20 +531,32 @@ def test_run_loop_matches_jax_bookkeeping():
 def test_what_is_not_ported_raises(tmp_path):
     (_, _), (ts, tstep), cfg = _train_pair("dlrm-rm2", dict(kind="sgd"), {})
     # checkpoints are ported: run with ckpt_dir saves at the end, and a
-    # restore onto shardings waits for distribution
+    # shardings tree that is not the state's raises
     rep = ttl.run(ts, tstep, lambda s: _batch(cfg, 8, seed=1, step=s), 2,
                   ttl.TrainConfig(), ckpt_dir=str(tmp_path))
     assert rep.steps_done == 2 and rep.restarts == 0
     from repro_torch.train import checkpoint as tck
     got, man = tck.restore_latest(str(tmp_path), rep.state)
     assert man["step"] == 2 and int(got["step"]) == 2
-    with pytest.raises(NotImplementedError, match="module item 6"):
+    with pytest.raises(ValueError, match="congruent"):
         tck.restore_latest(str(tmp_path), rep.state, shardings={})
+    # grad compression is ported: the state carries the error feedback
+    # ([1, ...] f32 zeros a leaf, as the JAX package's [n_dp, ...] on one
+    # device), and the step needs a mesh, as the JAX package's asserts
     opt = topt.make_optimizer(topt.OptimizerConfig(kind="sgd"))
-    for fn in (lambda c: ttl.build_train_step(None, opt, c),
-               lambda c: ttl.init_state(ts["params"], opt, c)):
-        with pytest.raises(NotImplementedError, match="module item 6"):
-            fn(ttl.TrainConfig(grad_compression="int8"))
+    c8 = ttl.TrainConfig(grad_compression="int8")
+    st = ttl.init_state(ts["params"], opt, c8)
+    jst = jtl.init_state(jax.tree.map(jnp.asarray, tree_to_numpy(
+        ts["params"])), jopt.make_optimizer(jopt.OptimizerConfig(
+            kind="sgd")), jtl.TrainConfig(grad_compression="int8"))
+    for a, b in zip(ttree.leaves(st["ef"]), jax.tree.leaves(jst["ef"])):
+        assert tuple(a.shape) == b.shape and not a.any()
+    with pytest.raises(ValueError, match="needs a mesh"):
+        ttl.build_train_step(lambda p, b: trec.loss_fn(p, cfg, b), opt,
+                             c8)(st, _batch(cfg, 8, seed=1, step=0))
+    with pytest.raises(ValueError, match="unknown compression"):
+        ttl.build_train_step(None, opt, ttl.TrainConfig(
+            grad_compression="fp8"))
     with pytest.raises(ValueError, match="unknown optimizer"):
         topt.make_optimizer(topt.OptimizerConfig(kind="lion"))
 
