@@ -25,7 +25,10 @@ non-zero on failure:
    arrays of xDeepFM and AutoInt, the two-tower's 8 fields at d = 256 and
    its item fields alone at table ids (4, 5, 6, 7), the Table-3 models' 8
    fields on 3,222 slots, and xDeepFM's array under a zipf batch of
-   65,536 x 39), ``qrobe_lookup`` without and with a
+   65,536 x 39), and at the LM family's token embeddings
+   (``lm_lookups``: F = 1 at d = 1,024, 2,048, 2,560 and 5,120 on each
+   LM's 8x array, 19.4M to 97.3M slots, B in 1, 509, 4,096),
+   ``qrobe_lookup`` without and with a
    nonzero ``delta``, and also on rows that cross the circular wrap at |M|
    inside the last, partial scale group; ``tt_lookup`` at
    full width, with cores off 16-byte alignment, and at ``TT_SHAPES``
@@ -46,7 +49,8 @@ non-zero on failure:
    of the bucketed scatter, on a cotangent with the strides autograd hands
    over, and on the quickstart's 18,400-slot array (d = 16, Z = 32) under
    a batch of 1,024 of its stream, and at phase (g)'s shapes as the
-   forward; ``qrobe_lookup_bwd`` (the scales' and
+   forward and at the LM family's (F = 1, 32 to 160 pairs an item);
+   ``qrobe_lookup_bwd`` (the scales' and
    delta's gradients) at every ``ROBE_REGIMES`` (d, Z) and B in 1, 509,
    512, on the zipf batch, on it with one field at a single row, on 65,536
    samples of all-distinct rows, on wrap rows, on rows whose line of slots
@@ -147,14 +151,14 @@ non-zero on failure:
    every resident row equal to the card's lookup of its id, ``score``
    cached against uncached at B=512 in turns with the hit rates; the
    replay (``run_grid``: full, hashed, robe × deadline, fixed on the JAX
-   grid's trace, 4,096 requests at 2,000 Hz, 25 ms, batches of 32, on the
+   grid's trace, 1,024 requests at 2,000 Hz, 25 ms, batches of 32, on the
    measured card scorer; the zipf-4.0 control; one ``max_batch`` = 512
    row a backend at 70% of the capacity its B=512 ``score`` gives), each
    cell's launches; one ``AsyncRouter`` pass of 320 requests on hashed,
    each batch's scores equal to ``score`` of the same padded batch; then,
    with the 52 GB table freed, at full ``dlrm-criteo-tb`` width, the
-   online push drill (``OnlineTrainer``, adagrad, B=65,536, 24 steps, a
-   publish every 8 on a stream drifting every 8; a second server pushes
+   online push drill (``OnlineTrainer``, adagrad, B=65,536, 8 steps, a
+   publish at 0 and 8 on a stream drifting every 4; a second server pushes
    each publish): on hashed with the cache, after every push the server's
    params ``torch.equal`` to the trainer's, the surviving cache rows equal
    to the new params' lookup, cached scores equal to uncached ones, then
@@ -172,11 +176,12 @@ non-zero on failure:
    candidates), launching robe_lookup once a call (retrieval twice) and
    nothing else, the first within ``SCORE_TOL`` of the CPU; three adam
    steps (lr 0.002) at B = 4,096 each shadowed by the CPU step from the
-   same state (losses within 2e-3, each leaf's gradient read by
-   ``UpdateErr`` as phase 3 reads its three SGD steps; adam's update read
-   beside it); five adagrad steps at B = 65,536 (the two-tower: 16,384)
-   with finite losses and one robe_lookup and one robe_lookup_bwd a step;
-   ``score`` and the step timed (host clock, median of 7) with the step's
+   same state (losses within 2e-3, each leaf's gradient, taken from
+   adam's first moment, read by ``UpdateErr`` as phase 3 reads its three
+   SGD steps; adam's update read beside it); five adagrad steps at B =
+   65,536 (the two-tower: 16,384) with finite losses and one robe_lookup
+   and one robe_lookup_bwd a step;
+   ``score`` and the step timed (host clock, median of 3) with the step's
    device breakdown; robe_lookup and robe_lookup_bwd alone at each new
    shape beside their bounds; each configuration's peak device memory;
    (h) distribution on a one-rank NCCL mesh (a ``FileStore`` in a
@@ -199,9 +204,38 @@ non-zero on failure:
    the mesh and ``restore_onto`` it, bit for bit; the two-tower's
    retrieval of 10^6 candidates under the mesh, ``torch.equal`` to (g)'s
    scores;
+   last, (i) the LM family and GatedGCN (``lm_gnn``), one part after
+   another: GatedGCN's full config on ``full_graph_sm``, ``molecule`` and
+   ``minibatch_lg`` (a Reddit-sized graph of 4,000,000 edges), 10 adam
+   steps (lr 1e-3) each, each step against the CPU step from the same
+   state in the card's ReLU decisions (at most RELU_FLIP_LIMIT of them
+   taken a step): the loss, and ``UpdateErr`` on the step's gradient,
+   taken from adam's first moment (minibatch_lg's first and last; with
+   molecule, what a planted lost edge reads); ``qwen3-0.6b`` at
+   full width and depth (28 layers, d = 1,024, 751.6M params), ``full`` and
+   ``robe`` (8x: 19,447,808 slots) on the same layers: the f32 card against
+   a CPU copy at B = 2, T = 64 (logits, loss, a decode chain and, on
+   robe, one adam step read by ``UpdateErr``: its gradient, taken from
+   adam's first moment, and its update held), bf16 decode against the bf16
+   forward after a 256-token prefill, then the prefill of 32,768 tokens
+   (last logits, the cache collected; its attention timed by CUDA events),
+   16 decode steps at B = 8 on a 32,768-slot bf16 cache (30.1 GB) and 5
+   adam steps (lr 3e-4) at B = 4, T = 4,096 with remat, each timed with its
+   peak memory and launches (robe: one ``robe_lookup`` a forward and one
+   ``robe_lookup_bwd`` a training step; full: none), a ``torch.profiler``
+   breakdown of robe's last training step, and both ROBE kernels at the
+   LM's shapes on its tokens, held to their plain versions (the forward
+   equal, the backward within the scatter's bound) and timed beside their
+   bounds; the MoE (``qwen3-moe-30b-a3b``), MLA
+   (``minicpm3-4b``) and ``qwen1.5-32b`` configs at full width and 2
+   layers: the f32 CPU check, a prefill of 4,096 tokens and 16 decode steps
+   on its cache, and for ``qwen1.5-32b`` 16 decode steps at B = 8 on 32,768
+   slots with an int8 cache against a bf16 cache of the same keys and
+   values;
 6. one JSON line of the recsys family's numbers, one of (h)'s, one of
-   kernel numbers (the training kernels' ``launches_mesh``: (h)'s five
-   ZeRO-3 steps), then, last, the ok line.
+   (i)'s, one of kernel numbers (the training kernels' ``launches_mesh``:
+   (h)'s five ZeRO-3 steps; the ROBE kernels' ``launches_lm`` and ``lm``
+   times at (i)'s shapes), then, last, the ok line.
 """
 
 from __future__ import annotations
@@ -218,6 +252,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unittest.mock
 from datetime import timedelta
 from pathlib import Path
 
@@ -227,12 +262,14 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import GNN_SHAPES, get_arch
 from repro_torch.configs.recsys_archs import CRITEO_TB_VOCABS
 from repro_torch.core.robe import (init_memory,
                                    robe_slots)
-from repro_torch.data import (CtrDataConfig, CtrStream,
-                              RequestStream, retrieval_batch)
+from repro_torch.data import (CsrGraph, CtrDataConfig, CtrStream,
+                              GraphSpec, LmDataConfig, LmStream,
+                              NeighborSampler, RequestStream, SamplerConfig,
+                              molecule_batch, retrieval_batch)
 from repro_torch.dist import api as dist
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.param_specs import recsys_specs
@@ -259,9 +296,12 @@ from repro_torch.kernels.tt_lookup import RANKS as TT_RANKS
 from repro_torch.kernels.tt_lookup import bwd_plan as tt_bwd_plan
 from repro_torch.kernels.serve_fused import serve_fused_bwd_cuda
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import gatedgcn as gcn
+from repro_torch.models import transformer as lm
 from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
                                        loss_fn, make_project_fn,
                                        serve_scores)
+from repro_torch.nn import attention as attn_mod
 from repro_torch.nn.embeddings import get_backend
 from repro_torch.nn.embedding_backends.hashed import (default_buckets,
                                                       qr_layout)
@@ -359,20 +399,24 @@ RESTART_STEPS, RESTART_EVERY, RESTART_FAULT = 12, 4, 9
 RM2_DIM, RM2_BOT, RM2_TOP = 64, (512, 256, 64), (512, 512, 256, 1)
 RM2_ROWS = 204_185_088
 CACHE_CHECK_BATCH = 4096
-#: (f) the serving tier: hot-row caches of 16,384 rows warmed on 64
+#: (f) the serving tier: hot-row caches of 16,384 rows warmed on 32
 #: batches of 256 requests; zipf 1.05 traffic and the 4.0 control; the
-#: JAX package's serving grid trace (4,096 requests at 2,000 Hz, a 25 ms
-#: deadline, batches of 32: benchmarks/table4_inference_throughput.py);
-#: one row a backend at max_batch 512 offered BIG_LOAD of the capacity its
-#: B=512 score gives; the router's pass; the online drill's steps,
-#: publishes and drift; the fleet's replicas
-CACHE_ROWS, WARM_BATCHES = 16384, 64
+#: JAX package's serving grid trace (2,000 Hz, a 25 ms deadline, batches
+#: of 32: benchmarks/table4_inference_throughput.py) cut to its first
+#: 1,024 requests; one row a backend at max_batch 512 offered BIG_LOAD of
+#: the capacity its B=512 score gives, 4,096 requests; the router's pass;
+#: the online drill's steps, publishes (a full one and a delta) and
+#: drift; the fleet's replicas.  The repetition counts were cut (from 64
+#: warm batches, 4,096 and 16,384 requests, 24 drill steps with a publish
+#: every 8 on a stream drifting every 8) to make room for phase (i); every
+#: check of the phase stands
+CACHE_ROWS, WARM_BATCHES = 16384, 32
 ZIPF, ZIPF_CONTROL = 1.05, 4.0
-GRID = ReplayConfig(n_requests=4096, rate_hz=2000.0, deadline_s=0.025,
+GRID = ReplayConfig(n_requests=1024, rate_hz=2000.0, deadline_s=0.025,
                     max_batch=32, max_wait_s=0.050)
-BIG_BATCH, BIG_LOAD, BIG_REQUESTS = 512, 0.7, 16384
+BIG_BATCH, BIG_LOAD, BIG_REQUESTS = 512, 0.7, 4096
 ROUTER_REQUESTS = 320
-ONLINE_STEPS, PUBLISH_EVERY, DRIFT_PERIOD = 24, 8, 8
+ONLINE_STEPS, PUBLISH_EVERY, DRIFT_PERIOD = 8, 8, 4
 #: the restart drill's rate: OnlineTrainer's default (adagrad at 0.05)
 #: moves every weight by 0.05 on its first step, which at full width sends
 #: the next loss past 1e6
@@ -404,8 +448,55 @@ TWO_TOWER_B = 16384
 N_CAND, CPU_CAND = 1_000_000, 4096
 G_SCORES = {}                         # (g)'s retrieval scores, for (h)
 H_STEPS, H_COMPRESSED_STEPS, H_REPS = 5, 3, 7
-FAMILY_REPS = 7
+FAMILY_REPS = 3
 REPS = 21
+#: card clock cycles a millisecond of ``torch.cuda._sleep`` (~2 GHz)
+SLEEP_CYCLES_MS = 2_000_000
+PROFILE_TRIES = 3
+#: (i) the LM family and GatedGCN (the registry's LM_SHAPES and GNN_SHAPES,
+#: cut to one card).  LM_ARCH at full width and depth, full and robe (8x):
+#: the prefill at prefill_32k's length (batch 32 -> 1), decode on
+#: decode_32k's cache length (batch 128 -> 8), train_4k's length (batch
+#: 256 -> 4) with cells.py's adam lr; the card against the CPU at a small
+#: batch in f32, and bf16 decode against the bf16 forward
+LM_ARCH = "qwen3-0.6b"
+LM_PREFILL_T = 32768
+LM_DECODE_B, LM_CACHE, LM_DECODE_STEPS = 8, 32768, 16
+LM_TRAIN_B, LM_TRAIN_T, LM_TRAIN_STEPS, LM_LR = 4, 4096, 5, 3e-4
+LM_CHECK_B, LM_CHECK_T, LM_CPU_TOL = 2, 64, 1e-4
+#: bf16 decode steps after a 256-token prefill, each step's logits within
+#: LM_DECODE_TOL of the forward's largest |logit| at that position; the
+#: int8 cache's decode logits within LM_INT8_TOL (relative norm) of the
+#: bf16 cache's on the same keys and values (the JAX package's own int8
+#: bound, tests/test_attention.py, is 0.05 of the logits)
+LM_DECODE_CHECK_T, LM_DECODE_TOL, LM_INT8_TOL = 256, 5e-2, 5e-2
+#: full width at reduced depth (layers kept), prefill 1 x LM_REDUCED_T
+LM_REDUCED = {"qwen3-moe-30b-a3b": 2, "minicpm3-4b": 2, "qwen1.5-32b": 2}
+LM_REDUCED_T = 4096
+#: phase 2 at the LM family's token embeddings: F = 1, d = 1,024 to 5,120
+#: (8 to 40 chunks of 128 a row), each LM's 8x array
+LM_ROBE = ("qwen3-0.6b", "qwen3-moe-30b-a3b", "minicpm3-4b", "qwen1.5-32b")
+LM_PHASE2_BATCHES = (1, 509, 4096)
+#: GatedGCN's full config, cells.py's adam lr; minibatch_lg samples a
+#: graph of Reddit's 232,965 nodes and REDDIT_EDGES of its 114,615,892
+#: edges (the most whose CsrGraph numpy builds in about 10 s on one core)
+GNN_STEPS, GNN_LR, GNN_LOSS_TOL = 10, 1e-3, 1e-4
+#: the median gradient reading of ``edge_sums``' leaves (UPDATE_TOL)
+GNN_EDGE_SUM_TOL = UPDATE_TOL
+GNN_TIME_STEPS = 3                    # timed after the held steps
+ADAM_BETA1 = OptimizerConfig().beta1   # adam's first-moment decay
+REDDIT_EDGES = 4_000_000
+#: the steps of each cell held against the CPU (default every step):
+#: minibatch_lg's CPU step takes ~20 s on the card's host, so its other
+#: steps are checked on the card alone (finite losses, no kernel launched)
+GNN_HELD = {"minibatch_lg": (0, 9)}
+#: the most ReLU decisions a step the CPU may take from the card
+#: (``ReluMasks``), about four times the most that sound runs read (NVIDIA
+#: H100 80GB HBM3, 700 W; two whole-script runs and one of phase (i)):
+#: GatedGCN full_graph_sm 8, molecule 46, minibatch_lg 50 of 13.5M-385.6M
+#: a step; the recsys family 2 (``family_adam``)
+RELU_FLIP_LIMIT = {"full_graph_sm": 32, "molecule": 160,
+                   "minibatch_lg": 200, "family": 8}
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
 #: the H100 SXM data sheet's peaks
 PEAKS = {"H100": (3.35e12, 67e12)}
@@ -603,6 +694,18 @@ def check_kernels(gen, memory, spec, subs, dev) -> dict:
     # the recsys family's lookups (phase (g)), exactly equal too, both
     # dtypes, the sign on and off (``family_lookups``)
     for what, mem, idx, ids, dim, base in family_lookups(gen, dev):
+        for m, sign in itertools.product((mem, mem.to(torch.bfloat16)),
+                                         (False, True)):
+            sp = dataclasses.replace(base, use_sign=sign)
+            got = robe_lookup_cuda(m, idx, ids, dim, sp)
+            want = robe_lookup_ref(m, idx, ids, dim, sp)
+            require(torch.equal(got, want),
+                    f"robe_lookup {what} d={dim} sign={sign} {m.dtype}: "
+                    f"max err {max_err(got, want)}")
+            record("robe_lookup", got, want)
+    # the LM family's token embeddings (``lm_lookups``): one field, rows
+    # of 8 to 40 chunks of 128
+    for what, mem, idx, ids, dim, base in lm_lookups(gen, dev):
         for m, sign in itertools.product((mem, mem.to(torch.bfloat16)),
                                          (False, True)):
             sp = dataclasses.replace(base, use_sign=sign)
@@ -1136,6 +1239,14 @@ def check_backwards(gen, spec, dev, robe_rows, di_cases, record) -> dict:
                             device=dev).to(dt)
             robe_case(idx, g, dataclasses.replace(base, use_sign=sign),
                       f"{what} d={dim} sign={sign} {dt}", ids)
+    # the LM family's token embeddings: an item spans 32 to 160 pairs
+    for what, _, idx, ids, dim, base in lm_lookups(gen, dev):
+        for dt, sign in itertools.product((torch.float32, torch.bfloat16),
+                                          (False, True)):
+            g = torch.randn(tuple(idx.shape) + (dim,), generator=gen,
+                            device=dev).to(dt)
+            robe_case(idx, g, dataclasses.replace(base, use_sign=sign),
+                      f"{what} d={dim} sign={sign} {dt}", ids)
     del zipf, chain, distinct, g
     torch.cuda.synchronize()
 
@@ -1374,7 +1485,8 @@ class UpdateErr:
     kept as information.  A backward that left a leaf's gradient zero reads
     1 there; summation order alone reads ~1e-7."""
 
-    def __init__(self, params):
+    def __init__(self, params, device="cpu"):
+        self.device = device     # where the readings are computed
         self.names = leaf_names(params)
         self.diff = [0.0] * len(self.names)
         self.norm = [0.0] * len(self.names)
@@ -1385,8 +1497,9 @@ class UpdateErr:
         row = {}
         for i, (name, o, c, h) in enumerate(zip(
                 self.names, leaves(old), leaves(card), leaves(cpu))):
-            want = h.double() - o.double()
-            d = (c.cpu().double() - o.double()) - want
+            o = o.to(self.device).double()
+            want = h.to(self.device).double() - o
+            d = (c.to(self.device).double() - o) - want
             dn, wn = float(d.square().sum()), float(want.square().sum())
             self.diff[i] += dn
             self.norm[i] += wn
@@ -1406,9 +1519,11 @@ class UpdateErr:
         return {n: statistics.median(row[n] for row in self.steps)
                 for n in self.steps[0]}
 
-    def check(self, what: str, median: bool = True) -> dict:
-        """Fails unless the per-step reading holds (without ``median``,
-        only its bound on the flagged steps); returns its summary."""
+    def check(self, what: str, median: bool = True,
+              median_tol: float = UPDATE_MEDIAN_TOL) -> dict:
+        """Fails unless the per-step reading holds (each leaf's median
+        within ``median_tol``; without ``median``, only the bound on the
+        flagged steps); returns its summary."""
         for f in self.flagged:
             print(f"{what}: step {f['step']} {f['leaf']} update reads "
                   f"{f['reading']:.3e} of its norm ({f['elements']} "
@@ -1416,9 +1531,9 @@ class UpdateErr:
         med = self.medians()
         bad = sorted({f["step"] for f in self.flagged})
         most = math.ceil(UPDATE_FLAG_SHARE * len(self.steps))
-        require(not median or max(med.values()) <= UPDATE_MEDIAN_TOL,
+        require(not median or max(med.values()) <= median_tol,
                 f"{what}: a leaf's median update reading is above "
-                f"{UPDATE_MEDIAN_TOL}: {med}")
+                f"{median_tol}: {med}")
         require(len(bad) <= most,
                 f"{what}: {len(bad)} of {len(self.steps)} steps have a leaf "
                 f"above {UPDATE_TOL} (at most {most}): steps {bad}")
@@ -2408,6 +2523,25 @@ def family_lookups(gen, dev) -> list:
     return out
 
 
+def lm_lookups(gen, dev) -> list:
+    """(what, memory, rows, table ids, dim, spec) of the LM family's token
+    embeddings (phase (i)): each LM_ROBE config's 8x array (d = 1,024,
+    2,048, 2,560, 5,120 at Z = 32; 19.4M to 97.3M slots), F = 1 (table
+    0), uniform tokens of its vocabulary with the last id among them, at
+    B in LM_PHASE2_BATCHES."""
+    out = []
+    for arch in LM_ROBE:
+        cfg = lm_config(arch, "robe")
+        spec = cfg.robe_spec()
+        mem = init_memory(gen, spec, dev)
+        rows = torch.randint(0, cfg.vocab, (max(LM_PHASE2_BATCHES), 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+        rows[-1] = cfg.vocab - 1
+        out += [(f"{arch} F=1 B={b}", mem, rows[-b:].contiguous(), (0,),
+                 cfg.d_model, spec) for b in LM_PHASE2_BATCHES]
+    return out
+
+
 def family_serve(cfg: RecsysConfig, params, cpu_params) -> dict:
     """``serve_scores`` on the card: CTR models at B = 512 (a zipf batch
     of ``CtrStream``, its rows past FAMILY_N_VALID zeroed as padding) and
@@ -2510,11 +2644,13 @@ def family_adam(cfg: RecsysConfig, params) -> dict:
     """FAMILY_ADAM_STEPS adam steps (lr FAMILY_LR) at B = FAMILY_ADAM_B
     through ``run``, each card step shadowed by the CPU step from the same
     state in the card step's ReLU decisions (``ReluMasks``; the decisions
-    that differ are counted): its loss within QS_LOSS_TOL, each param
+    that differ are counted, at most RELU_FLIP_LIMIT["family"] a step):
+    its loss within QS_LOSS_TOL, each param
     leaf's update read by ``UpdateErr`` as phase 3 reads its three
     full-width steps (at most UPDATE_FLAG_SHARE of the steps, rounded up,
     with a leaf above UPDATE_TOL), and each leaf's gradient, card against
-    CPU, read as phase 3 reads its quickstart (each leaf's median within
+    CPU, taken from adam's first moment (``grad_reading``) and read as
+    phase 3 reads its quickstart (each leaf's median within
     UPDATE_MEDIAN_TOL too).  The median is not asked of adam's update:
     its first steps move each element by about lr * g / (|g| + eps), so
     an element whose gradient is near eps (1e-8) turns last-bit
@@ -2527,7 +2663,6 @@ def family_adam(cfg: RecsysConfig, params) -> dict:
                                 make_optimizer(opt), TrainConfig())
     start = to_device(params, "cpu")
     grad, upd = UpdateErr(start), UpdateErr(start)
-    zero = tree_map(torch.zeros_like, start)
     diffs, flips = [], []
 
     def shadow(step_fn):
@@ -2535,20 +2670,17 @@ def family_adam(cfg: RecsysConfig, params) -> dict:
             old = to_device(state, "cpu")
             host = to_device(batch, "cpu")
             with ReluMasks() as rec:
-                g_card = loss_grads(cfg, state["params"], batch)
-            with ReluMasks(rec.masks) as rg:
-                g_cpu = loss_grads(cfg, old["params"], host)
-            grad.add(zero, g_card, g_cpu)
-            with ReluMasks() as rec:
                 state, m = step_fn(state, batch)
                 loss = float(m["loss"])
             with ReluMasks(rec.masks) as rep_step:
                 want, wm = cpu_step(old, host)
             diffs.append(abs(loss - float(wm["loss"])))
             flips.append(rep_step.flips)
-            require(rg.at == rep_step.at == len(rec.masks) > 0,
+            require(rep_step.at == len(rec.masks) > 0,
                     f"{cfg.name}: the CPU step made {rep_step.at} ReLU "
                     f"calls, the card's {len(rec.masks)}")
+            grad_reading(grad, old["opt"]["m"], state["opt"]["m"],
+                         want["opt"]["m"])
             upd.add(old["params"], state["params"], want["params"])
             return state, m
         return step
@@ -2556,6 +2688,9 @@ def family_adam(cfg: RecsysConfig, params) -> dict:
                     family_stream(cfg, FAMILY_ADAM_B).batch_at,
                     FAMILY_ADAM_STEPS, shadow)
     what = f"{cfg.name} adam B={FAMILY_ADAM_B}"
+    require(max(flips) <= RELU_FLIP_LIMIT["family"],
+            f"{what}: the CPU steps took {flips} ReLU decisions from the "
+            f"card's (at most {RELU_FLIP_LIMIT['family']} a step)")
     require(max(diffs) <= QS_LOSS_TOL,
             f"{what}: a card step's loss differs from the CPU step's from "
             f"the same state by {max(diffs)}")
@@ -2602,15 +2737,51 @@ def family_full_batch(cfg: RecsysConfig, params) -> tuple:
                                   if v}}, first
 
 
+def robe_fwd_times(mem, spec, d: int, ids, rows, rates,
+                   plain=None) -> dict:
+    """``robe_lookup`` of width ``d`` on ``rows`` (batches [B, F] of table
+    ids ``ids``) beside its bound (the rows and the touched slots read,
+    the output written) and, on ``plain`` (batches), its plain version."""
+    b, nf = rows[0].shape
+    uniq = int(touched_slots(spec, rows[0], table_ids=ids, dim=d).sum())
+    out = {"touched_slots": uniq, "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound(
+        b * nf * 4 + uniq * 4 + b * nf * d * 4, 0, rates)
+    out["ms"] = device_ms(lambda r: robe_lookup_cuda(mem, r, ids, d, spec),
+                          [(r,) for r in rows])
+    if plain is not None:
+        out["plain_ms"] = device_ms(
+            lambda r: robe_lookup_ref(mem, r, ids, d, spec),
+            [(r,) for r in plain])
+    return out
+
+
+def robe_bwd_times(spec, d: int, ids, pairs, rates, plain=None) -> dict:
+    """``robe_lookup_bwd`` on ``pairs`` ((rows, g) of table ids ``ids``)
+    beside its bound (g and the rows read, the |M| f32 gradient written)
+    and, on ``plain`` (pairs), its plain version."""
+    rows = pairs[0][0]
+    b, nf = rows.shape
+    out = {"touched_slots": int(touched_slots(spec, rows, table_ids=ids,
+                                              dim=d).sum()),
+           "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound(
+        b * nf * d * 4 + b * nf * 4 + spec.size * 4, 0, rates)
+    out["ms"] = device_ms(
+        lambda r, g: robe_lookup_bwd_cuda(g, r, ids, d, spec), pairs)
+    if plain is not None:
+        out["plain_ms"] = device_ms(
+            lambda r, g: robe_lookup_bwd_ref(g, r, ids, d, spec), plain)
+    return out
+
+
 def family_kernel_times(cfg: RecsysConfig, params, train_rows, rates,
                         dev) -> dict:
     """``robe_lookup`` at the configuration's serve shapes (B = 512 and
     262,144; the two-tower's query at 512 and its N_CAND candidates' item
     fields) and ``robe_lookup_bwd`` at its training batch, each beside its
-    bound as ``time_kernels`` and ``time_backwards`` count it (forward:
-    the rows and the touched slots read, the output written; backward: g
-    and the rows read, the |M| f32 gradient written), the backward's
-    passes (``device_breakdown``) and both plain versions at B = 512."""
+    bound (``robe_fwd_times``, ``robe_bwd_times``), the backward's passes
+    (``device_breakdown``) and both plain versions at B = 512."""
     spec = cfg.embedding_spec().robe
     mem = params["embedding"]["memory"]
     d, f = cfg.embed_dim, cfg.n_fields
@@ -2631,36 +2802,21 @@ def family_kernel_times(cfg: RecsysConfig, params, train_rows, rates,
     out = {"robe_lookup": {}, "robe_lookup_bwd": {}}
     rl, rb = out["robe_lookup"], out["robe_lookup_bwd"]
     for tag, (ids, rows) in fwd.items():
-        b, nf = rows[0].shape
-        uniq = int(touched_slots(spec, rows[0], table_ids=ids, dim=d).sum())
-        rl["bound_ms" + tag], rl["bound_by" + tag] = bound(
-            b * nf * 4 + uniq * 4 + b * nf * d * 4, 0, rates)
-        rl["touched_slots" + tag] = uniq
-        rl["library_ms" + tag] = None
-        rl["ms" + tag] = device_ms(
-            lambda r: robe_lookup_cuda(mem, r, ids, d, spec),
-            [(r,) for r in rows])
-    rl["plain_ms"] = device_ms(
-        lambda r: robe_lookup_ref(mem, r, every, d, spec),
-        [(r,) for r in small])
+        t = robe_fwd_times(mem, spec, d, ids, rows, rates,
+                           small if tag == "" else None)
+        rl.update({(k if k == "plain_ms" else k + tag): v
+                   for k, v in t.items()})
     b = train_rows.shape[0]
     gs = [torch.randn((b, f, d), device=dev) for _ in range(2)]
-    rb["bound_ms_train"], rb["bound_by_train"] = bound(
-        b * f * d * 4 + b * f * 4 + spec.size * 4, 0, rates)
-    rb["touched_slots_train"] = int(touched_slots(spec, train_rows,
-                                                  dim=d).sum())
-    rb["library_ms_train"] = None
+    g_small = [torch.randn((B_P99, f, d), device=dev) for _ in small]
+    t = robe_bwd_times(spec, d, every, [(train_rows, g) for g in gs], rates,
+                       list(zip(small, g_small)))
+    rb.update({(k if k == "plain_ms" else k + "_train"): v
+               for k, v in t.items()})
     rb["batch_train"] = b
-    rb["ms_train"] = device_ms(
-        lambda g: robe_lookup_bwd_cuda(g, train_rows, every, d, spec),
-        [(g,) for g in gs])
     rb["passes_ms_train"] = device_breakdown(
         lambda: robe_lookup_bwd_cuda(gs[0], train_rows, every, d,
                                      spec))["top_ms"]
-    g_small = [torch.randn((B_P99, f, d), device=dev) for _ in small]
-    rb["plain_ms"] = device_ms(
-        lambda r, g: robe_lookup_bwd_ref(g, r, every, d, spec),
-        list(zip(small, g_small)))
     out["config"] = {"fields": f, "dim": d, "z": spec.block_size,
                      "slots": spec.size}
     del gs, g_small, small
@@ -2689,7 +2845,7 @@ def recsys_family(rates, dev) -> dict:
             res["serve"] = family_serve(cfg, params, to_device(params, "cpu"))
         res["train_adam"] = family_adam(cfg, params)
         res["train_full_batch"], batch = family_full_batch(cfg, params)
-        res["step"] = time_train_step(cfg, params, batch)
+        res["step"] = time_train_step(cfg, params, batch, FAMILY_REPS)
         top = res["step"]["profile"]["top_ms"]
         res["step"]["profile"]["top_ms"] = dict(list(top.items())[:8])
         key = (cfg.vocab_sizes, cfg.embed_dim, cfg.robe_size)
@@ -2708,6 +2864,766 @@ def recsys_family(rates, dev) -> dict:
         print(f"recsys family {name}: ok ({res['wall_s']:.1f} s), peak "
               f"memory {res['max_memory_allocated']} B")
         out[name] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase (i): the LM family and GatedGCN
+# ---------------------------------------------------------------------------
+
+def lm_config(arch: str, embedding: str = "full", train: bool = False,
+              **over):
+    """``arch``'s full config as ``launch/cells._lm_cfg`` sets it: remat on
+    for training and off for serving (bf16 compute, f32 params)."""
+    over.setdefault("remat", train)
+    return get_arch(arch).make_config("full", embedding=embedding, **over)
+
+
+def lm_tokens(cfg, b: int, t: int, step: int = 0) -> dict:
+    """A batch of ``LmStream`` at the config's vocabulary, on the card."""
+    raw = LmStream(LmDataConfig(vocab=cfg.vocab, seq_len=t, batch_size=b,
+                                seed=SEED)).batch_at(step)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in raw.items()}
+
+
+def lm_expect(counts: dict, want: dict, what: str) -> None:
+    """Every kernel launched exactly ``want.get(name, 0)`` times."""
+    require(all(n == want.get(k, 0) for k, n in counts.items()),
+            f"{what} launched {counts}; expected {want} and no other kernel")
+
+
+def mean_launches(counts: list) -> dict:
+    """Each kernel's launches a step, the mean of the steps' counts (the
+    kernels launched at all)."""
+    names = sorted({k for c in counts for k, v in c.items() if v})
+    return {k: sum(c.get(k, 0) for c in counts) / len(counts)
+            for k in names}
+
+
+def lm_step_kernels(cfg, train: bool = False) -> dict:
+    """The kernels one forward (and, training, its backward) launches:
+    the ROBE token embedding's, none on ``full``."""
+    if cfg.embedding != "robe":
+        return {}
+    return {"robe_lookup": 1, **({"robe_lookup_bwd": 1} if train else {})}
+
+
+def lm_prefill(cfg, params, b: int, t: int):
+    """One prefill of [b, t] tokens (``logits_mode="last"``,
+    ``collect_cache``): (its time, the device time of its attention
+    (``Spans`` of ``chunked_attention``), tokens/s, peak memory and
+    launches; the cache)."""
+    toks = lm_tokens(cfg, b, t)["tokens"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.inference_mode(), Spans(attn_mod, "chunked_attention") as sp:
+        (logits, _, cache), ms = synced_ms(lambda: lm.forward(
+            params, cfg, toks, collect_cache=True, logits_mode="last"))
+    c = launch_counts()
+    lm_expect(c, lm_step_kernels(cfg), f"{cfg.name} prefill")
+    require(logits.shape == (b, cfg.vocab_padded) and
+            bool(torch.isfinite(logits).all()),
+            f"{cfg.name} prefill: logits {tuple(logits.shape)} not finite")
+    n_kv = sum(v.numel() * v.element_size()
+               for v in cache["layers"].values())
+    return {"batch": b, "seq": t, "ms": ms, "attention_ms": sp.ms(),
+            "tokens_per_s": b * t / ms * 1e3,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "cache_bytes": n_kv, "launches": {k: v for k, v in c.items()
+                                              if v}}, cache
+
+
+def lm_decode(cfg, params, caches, b: int, pos0: int) -> dict:
+    """LM_DECODE_STEPS decode steps of [b, 1] tokens at positions pos0.. on
+    ``caches``: per step host-clock ms (median), tokens/s, peak memory,
+    the launches read a step (``mean_launches``); the last step's
+    logits."""
+    steps = LM_DECODE_STEPS
+    toks = lm_tokens(cfg, b, steps, 7)["tokens"]
+    per, counts, logits = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for k in range(steps):
+            reset_launches()
+            (logits, caches), ms = synced_ms(lambda: lm.decode_step(
+                params, cfg, caches, toks[:, k:k + 1], pos0 + k))
+            counts.append(launch_counts())
+            lm_expect(counts[-1], lm_step_kernels(cfg),
+                      f"{cfg.name} decode step {k}")
+            require(logits.shape == (b, cfg.vocab_padded) and
+                    bool(torch.isfinite(logits).all()),
+                    f"{cfg.name} decode step {k}: logits not finite")
+            per.append(ms)
+    med = statistics.median(per)
+    return {"batch": b, "slots": caches["layers"][next(iter(
+        caches["layers"]))].shape[2], "positions": [pos0, pos0 + steps - 1],
+        "ms": med, "ms_each": per, "tokens_per_s": b / med * 1e3,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches_per_step": mean_launches(counts)}, logits
+
+
+def random_caches(cfg, b: int, slots: int, gen) -> dict:
+    """``lm.init_cache`` filled with N(0, 1) keys and values (bf16), as a
+    cache whose every slot holds a token."""
+    caches = lm.init_cache(cfg, b, slots, "cuda")
+    for v in caches["layers"].values():
+        v.normal_(generator=gen)
+    return caches
+
+
+def lm_train(cfg, params, b: int, t: int, profile: bool = False) -> dict:
+    """LM_TRAIN_STEPS adam steps (lr LM_LR) of ``build_train_step`` on
+    ``LmStream`` batches: per step host-clock ms (median), tokens/s, the
+    losses (finite), peak memory and the launches read a step
+    (``mean_launches``).  With ``profile`` the last step is also
+    ``device_breakdown``'s, with the device time of its
+    calls of ``chunked_attention`` and ``cross_entropy`` (``Spans``)."""
+    optimizer = make_optimizer(OptimizerConfig(kind="adam", lr=LM_LR))
+    tc = TrainConfig(max_restarts=0)
+    step_fn = build_train_step(lambda p, bb: lm.loss_fn(p, cfg, bb),
+                               optimizer, tc)
+    state = init_state(params, optimizer, tc)
+    torch.cuda.reset_peak_memory_stats()
+    per, losses, counts = [], [], []
+    steps = LM_TRAIN_STEPS
+    prof = None
+    for k in range(steps):
+        batch = lm_tokens(cfg, b, t, k)
+        reset_launches()
+        if profile and k == steps - 1:
+            box = {}
+
+            def one():
+                box["out"] = step_fn(state, batch)
+                float(box["out"][1]["loss"])
+            with Spans(attn_mod, "chunked_attention") as att, \
+                    Spans(lm, "cross_entropy") as ce:
+                prof = device_breakdown(one, calls=1, warm=False)
+            prof["forward_ranges_ms"] = {"attention": att.ms(),
+                                         "loss": ce.ms()}
+            (state, m), ms = box.pop("out"), prof["wall_ms"]
+        else:
+            (state, m), ms = synced_ms(lambda: step_fn(state, batch))
+        counts.append(launch_counts())
+        lm_expect(counts[-1], lm_step_kernels(cfg, train=True),
+                  f"{cfg.name} train step {k}")
+        losses.append(float(m["loss"]))
+        per.append(ms)
+    require(np.isfinite(losses).all(), f"{cfg.name} train: {losses}")
+    med = statistics.median(per)
+    out = {"batch": b, "seq": t, "steps": steps, "lr": LM_LR, "ms": med,
+           "ms_each": per, "tokens_per_s": b * t / med * 1e3,
+           "losses": losses,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches_per_step": mean_launches(counts)}
+    if prof is not None:
+        out["profile"] = prof
+    del state
+    return out
+
+
+def lm_cpu_check(cfg, params, adam: bool = False) -> dict:
+    """At B = LM_CHECK_B, T = LM_CHECK_T in f32 (caches f32 too): the
+    card's logits and loss against a CPU copy of the same params (rtol =
+    atol = LM_CPU_TOL), then a prefill of all but 4 tokens and 4 decode
+    steps on both (each step's logits likewise); with ``adam``, one adam
+    step (lr LM_LR) from the same state on both, read by
+    ``adam_readings`` (on the card, in f64): each leaf's gradient held as
+    phase 3 holds updates, and each leaf's update within UPDATE_TOL (phase
+    3's bound on a flagged step; of one step, none may be flagged)."""
+    c32 = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                              cache_dtype=torch.float32, remat=False)
+    batch = lm_tokens(cfg, LM_CHECK_B, LM_CHECK_T, 3)
+    host = to_device(batch, "cpu")
+    cpu = to_device(params, "cpu")
+    out = {}
+    with torch.inference_mode():
+        lg, _ = lm.forward(params, c32, batch["tokens"])
+        want, _ = lm.forward(cpu, c32, host["tokens"])
+        loss = float(lm.loss_fn(params, c32, batch)[0])
+        wloss = float(lm.loss_fn(cpu, c32, host)[0])
+        err = max_err(lg.cpu(), want)
+        require(torch.allclose(lg.cpu(), want, rtol=LM_CPU_TOL,
+                               atol=LM_CPU_TOL) and
+                abs(loss - wloss) <= LM_CPU_TOL * max(1.0, abs(wloss)),
+                f"{cfg.name} f32: card logits within {err} of the CPU's, "
+                f"loss {loss} against {wloss}")
+        out.update(logits_max_diff=err, loss=loss, loss_diff=abs(loss - wloss))
+        n = LM_CHECK_T - 4
+        caches = {}
+        for dev, p, toks in (("cuda", params, batch["tokens"]),
+                             ("cpu", cpu, host["tokens"])):
+            _, _, pre = lm.forward(p, c32, toks[:, :n], collect_cache=True,
+                                   logits_mode="last")
+            cache = lm.init_cache(c32, LM_CHECK_B, LM_CHECK_T, dev)
+            for k, v in cache["layers"].items():
+                v[:, :, :n] = pre["layers"][k]
+            steps = []
+            for t in range(n, LM_CHECK_T):
+                lgt, cache = lm.decode_step(p, c32, cache, toks[:, t:t + 1],
+                                            t)
+                steps.append(lgt.cpu())
+            caches[dev] = steps
+        derr = max(max_err(a, b) for a, b in zip(caches["cuda"],
+                                                 caches["cpu"]))
+        require(all(torch.allclose(a, b, rtol=LM_CPU_TOL, atol=LM_CPU_TOL)
+                    for a, b in zip(caches["cuda"], caches["cpu"])),
+                f"{cfg.name} f32 decode: card logits within {derr} of the "
+                f"CPU's")
+        out["decode_logits_max_diff"] = derr
+    if adam:
+        opt = make_optimizer(OptimizerConfig(kind="adam", lr=LM_LR))
+        step = build_train_step(lambda p, b: lm.loss_fn(p, c32, b), opt,
+                                TrainConfig())
+        start = init_state(cpu, opt, TrainConfig())
+        card, cm = step(init_state(params, opt, TrainConfig()), batch)
+        want, wm = step(start, host)
+        m_err, p_err = adam_readings(
+            start, {"params": card["params"], "m": card["opt"]["m"]},
+            {"params": want["params"], "m": want["opt"]["m"]}, "cuda")
+        read = m_err.check(f"{cfg.name} f32 adam step's gradient")
+        upd = p_err.check(f"{cfg.name} f32 adam step's update", median=False)
+        require(not upd["flagged_steps"],
+                f"{cfg.name} f32 adam step's update: a leaf reads above "
+                f"{UPDATE_TOL}: {upd['median']}")
+        out["adam"] = {"loss_diff": abs(float(cm["loss"]) -
+                                        float(wm["loss"])),
+                       "grad_max_reading": read["max_median"],
+                       "grad_reading": read["median"],
+                       "update_max_reading": upd["max_median"],
+                       "update_reading": upd["median"]}
+        del card, want, start
+    del cpu
+    return out
+
+
+def lm_decode_check(cfg, params) -> dict:
+    """In bf16 (bf16 cache): after a LM_DECODE_CHECK_T-token prefill, each
+    of LM_DECODE_STEPS decode steps' logits against the forward's logits at
+    that position on the same tokens, within LM_DECODE_TOL of the
+    forward's largest |logit|."""
+    n, s = LM_DECODE_CHECK_T, LM_DECODE_CHECK_T + LM_DECODE_STEPS
+    toks = lm_tokens(cfg, LM_CHECK_B, s, 5)["tokens"]
+    errs = []
+    with torch.inference_mode():
+        full, _ = lm.forward(params, cfg, toks)
+        _, _, pre = lm.forward(params, cfg, toks[:, :n], collect_cache=True,
+                               logits_mode="last")
+        cache = lm.init_cache(cfg, LM_CHECK_B, s, "cuda")
+        for k, v in cache["layers"].items():
+            v[:, :, :n] = pre["layers"][k]
+        for t in range(n, s):
+            lg, cache = lm.decode_step(params, cfg, cache, toks[:, t:t + 1],
+                                       t)
+            ref = full[:, t].float()
+            errs.append(float((lg.float() - ref).abs().max()
+                              / ref.abs().max()))
+    require(max(errs) <= LM_DECODE_TOL,
+            f"{cfg.name} bf16 decode against the forward: {errs}")
+    return {"prefill": n, "steps": LM_DECODE_STEPS, "rel_err": errs,
+            "max_rel_err": max(errs)}
+
+
+class Spans:
+    """Within it, every call of ``mod.name`` is timed on the card (a CUDA
+    event before and after it); ``ms()`` after a synchronise is their
+    sum."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.events = mod, name, []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.mod, self.name)
+        events = self.events
+
+        def wrapped(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events.append((start, end))
+            return out
+        setattr(self.mod, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+
+def lm_kernel_times(cfg, params, rates, dev) -> dict:
+    """``robe_lookup`` at the LM's token counts (B·T = 8: a decode step;
+    16,384: a training step; 32,768: the prefill) and ``robe_lookup_bwd``
+    at the training step's, F = 1 on the config's array and
+    ``LmStream``'s tokens: each held against its plain version on the
+    same rows (the forward equal, the backward within SCATTER_TOL's
+    bound), then timed beside its bound and its plain version
+    (``robe_fwd_times``, ``robe_bwd_times``)."""
+    spec, mem, d = cfg.robe_spec(), params["embed"]["memory"], cfg.d_model
+    out = {"robe_lookup": {}, "robe_lookup_bwd": {}}
+    for tag, (b, t) in {"decode": (LM_DECODE_B, 1),
+                        "train": (LM_TRAIN_B, LM_TRAIN_T),
+                        "prefill": (1, LM_PREFILL_T)}.items():
+        rows = [lm_tokens(cfg, b, t, k)["tokens"].reshape(-1, 1).int()
+                .contiguous() for k in range(2)]
+        what = f"at the LM's {tag} ({b * t} tokens, d = {d})"
+        got = robe_lookup_cuda(mem, rows[0], (0,), d, spec)
+        want = robe_lookup_ref(mem, rows[0], (0,), d, spec)
+        require(torch.equal(got, want), f"robe_lookup {what}: max err "
+                f"{max_err(got, want)}")
+        out["robe_lookup"][tag] = {
+            "items": b * t, "max_abs_err": max_err(got, want),
+            **robe_fwd_times(mem, spec, d, (0,), rows, rates, rows)}
+        if tag == "train":
+            gs = [torch.randn((b * t, 1, d), device=dev) for _ in range(2)]
+            got = robe_lookup_bwd_cuda(gs[0], rows[0], (0,), d, spec)
+            want = robe_lookup_bwd_ref(gs[0], rows[0], (0,), d, spec)
+            a = robe_lookup_bwd_ref(gs[0].abs(), rows[0], (0,), d,
+                                    dataclasses.replace(spec, use_sign=False))
+            try:
+                over_a = scatter_err(got, want, a, torch.float32)
+            except SmokeFailure as e:
+                raise SmokeFailure(f"robe_lookup_bwd {what}: {e}") from None
+            pairs = list(zip(rows, gs))
+            out["robe_lookup_bwd"][tag] = {
+                "items": b * t, "max_abs_err": max_err(got, want),
+                "max_err_over_a": over_a,
+                **robe_bwd_times(spec, d, (0,), pairs, rates, pairs)}
+            del gs, a
+        del got, want
+    out["config"] = {"fields": 1, "dim": d, "z": spec.block_size,
+                     "slots": spec.size}
+    return out
+
+
+class Parts:
+    """Host-clock seconds of each named part of a phase: ``with
+    parts("name"):``."""
+
+    def __init__(self):
+        self.s = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+
+
+def lm_full_depth(rates, dev) -> dict:
+    """(i) 1: LM_ARCH at full width and depth, ``full`` and ``robe`` (8x)
+    on the same layers.  First the checks: the f32 card-against-CPU check
+    (robe's with one adam step: full's CPU adam step over its 751.6M
+    params takes ~25 s on the card's host) and the bf16
+    decode-against-forward check of each;
+    then on each: the prefill (1 x
+    LM_PREFILL_T, last logits, the cache collected), LM_DECODE_STEPS
+    decode steps at B = LM_DECODE_B on a LM_CACHE-slot bf16 cache,
+    LM_TRAIN_STEPS adam steps at B = LM_TRAIN_B, T = LM_TRAIN_T (remat on;
+    robe's last step also ``device_breakdown``'s); last, the ROBE kernels
+    at the LM's shapes (``lm_kernel_times``)."""
+    parts = Parts()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    full_cfg = lm_config(LM_ARCH)
+    robe_cfg = lm_config(LM_ARCH, "robe")
+    params = {"full": lm.init_params(full_cfg, gen, dev)}
+    params["robe"] = dict(params["full"], embed={
+        "memory": init_memory(gen, robe_cfg.robe_spec(), dev)})
+    out = {"arch": LM_ARCH, "params": full_cfg.param_count(),
+           "robe_slots": robe_cfg.robe_size,
+           "table_bytes": full_cfg.vocab_padded * full_cfg.d_model * 4,
+           "robe_bytes": robe_cfg.robe_size * 4}
+    kinds = (("full", full_cfg), ("robe", robe_cfg))
+    for kind, cfg in kinds:
+        res = out[kind] = {}
+        with parts(f"{kind}_check_f32"):
+            res["check_f32"] = lm_cpu_check(cfg, params[kind],
+                                            adam=kind == "robe")
+        with parts(f"{kind}_check_decode"):
+            res["check_decode_bf16"] = lm_decode_check(cfg, params[kind])
+    torch.cuda.empty_cache()
+    for kind, cfg in kinds:
+        p, res = params[kind], out[kind]
+        with parts(f"{kind}_prefill"):
+            res["prefill"], cache = lm_prefill(cfg, p, 1, LM_PREFILL_T)
+            del cache
+            torch.cuda.empty_cache()
+        with parts(f"{kind}_decode"):
+            caches = random_caches(cfg, LM_DECODE_B, LM_CACHE, gen)
+            res["decode"], _ = lm_decode(cfg, p, caches, LM_DECODE_B,
+                                         LM_CACHE - LM_DECODE_STEPS)
+            res["decode"]["cache_bytes"] = sum(
+                v.numel() * v.element_size()
+                for v in caches["layers"].values())
+            del caches
+            torch.cuda.empty_cache()
+        with parts(f"{kind}_train"):
+            tcfg = lm_config(LM_ARCH, kind, train=True)
+            res["train"] = lm_train(tcfg, p, LM_TRAIN_B, LM_TRAIN_T,
+                                    profile=kind == "robe")
+            torch.cuda.empty_cache()
+        print(f"(i) {LM_ARCH} {kind}: prefill {res['prefill']['ms']:.1f} ms, "
+              f"decode {res['decode']['ms']:.2f} ms a step, train "
+              f"{res['train']['ms']:.1f} ms a step", flush=True)
+    with parts("kernels"), torch.inference_mode():
+        out["kernels"] = lm_kernel_times(robe_cfg, params["robe"], rates,
+                                         dev)
+    del params
+    torch.cuda.empty_cache()
+    out["parts_s"] = parts.s
+    print(f"(i) {LM_ARCH} parts (s): "
+          + json.dumps({k: round(v, 1) for k, v in parts.s.items()}))
+    return out
+
+
+def lm_reduced_depth(arch: str, dev) -> dict:
+    """(i) 2: ``arch`` at full width, LM_REDUCED[arch] layers, ``full``:
+    the f32 card-against-CPU check (logits, loss, a decode chain), then a
+    bf16 prefill of 1 x LM_REDUCED_T and LM_DECODE_STEPS decode steps on
+    its cache; for qwen1.5-32b also the int8 cache's decode at B =
+    LM_DECODE_B on LM_CACHE slots against the same decode on a bf16 cache
+    holding the same keys and values (relative logit error within
+    LM_INT8_TOL), both timed.  No kernel launches (``full``)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cfg = lm_config(arch, n_layers=LM_REDUCED[arch])
+    params = lm.init_params(cfg, gen, dev)
+    out = {"arch": arch, "layers": cfg.n_layers,
+           "layers_full": get_arch(arch).make_config("full").n_layers,
+           "params": cfg.param_count()}
+    parts = Parts()
+    with parts("check_f32"):
+        out["check_f32"] = lm_cpu_check(cfg, params)
+    with parts("prefill"):
+        out["prefill"], pre = lm_prefill(cfg, params, 1, LM_REDUCED_T)
+    caches = lm.init_cache(cfg, 1, LM_REDUCED_T + LM_DECODE_STEPS, "cuda")
+    for k, v in caches["layers"].items():
+        v[:, :, :LM_REDUCED_T] = pre["layers"][k]
+    del pre
+    out["decode"], _ = lm_decode(cfg, params, caches, 1, LM_REDUCED_T)
+    del caches
+    torch.cuda.empty_cache()
+    if arch == "qwen1.5-32b":
+        t0 = time.perf_counter()
+        bf = random_caches(cfg, LM_DECODE_B, LM_CACHE, gen)
+        q8 = lm.init_cache(dataclasses.replace(cfg, cache_dtype=torch.int8),
+                           LM_DECODE_B, LM_CACHE, "cuda")
+        for k in ("k", "v"):
+            for i in range(cfg.n_layers):
+                codes, scale = attn_mod._q8(bf["layers"][k][i].float())
+                q8["layers"][k][i] = codes
+                q8["layers"][k + "_scale"][i] = scale
+        dec = {}
+        logits = {}
+        for name, c, caches in (("bf16", cfg, bf),
+                                ("int8", dataclasses.replace(
+                                    cfg, cache_dtype=torch.int8), q8)):
+            dec[name], logits[name] = lm_decode(c, params, caches,
+                                                LM_DECODE_B,
+                                                LM_CACHE - LM_DECODE_STEPS)
+            dec[name]["cache_bytes"] = sum(
+                v.numel() * v.element_size()
+                for v in caches["layers"].values())
+        ref = logits["bf16"].float()
+        rel = float((logits["int8"].float() - ref).norm() / ref.norm())
+        require(rel <= LM_INT8_TOL,
+                f"{arch}: the int8 cache's decode logits differ from the "
+                f"bf16 cache's by {rel} of their norm")
+        out["decode_32k"] = dict(dec, int8_rel_err=rel)
+        del bf, q8
+        parts.s["decode_32k"] = time.perf_counter() - t0
+    out["parts_s"] = parts.s
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def reddit_sampler() -> tuple:
+    """(GNN_STEPS batches, their graph): a ``CsrGraph`` with Reddit's node
+    count and REDDIT_EDGES of its edges at d_feat 602
+    (``GNN_SHAPES["minibatch_lg"]``), sampled by ``NeighborSampler`` with
+    its seeds and fanouts."""
+    shape = GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    g = CsrGraph(GraphSpec(n_nodes=shape["n_nodes"], n_edges=REDDIT_EDGES,
+                           d_feat=shape["d_feat"], n_classes=16))
+    build_s = time.perf_counter() - t0
+    s = NeighborSampler(g, SamplerConfig(batch_nodes=shape["batch_nodes"],
+                                         fanouts=shape["fanouts"]))
+    return [s.sample(k) for k in range(GNN_STEPS)], {
+        "graph_nodes": g.spec.n_nodes, "graph_edges": REDDIT_EDGES,
+        "graph_build_s": build_s, "padded_nodes": s.max_nodes,
+        "padded_edges": s.max_edges}
+
+
+def gnn_batches(shape: str) -> tuple:
+    """(GNN_STEPS numpy batches of the cell: the full graph each step
+    (full_graph_sm), ``molecule_batch`` of step k, or ``reddit_sampler``'s;
+    the sampled graph's numbers)."""
+    if shape == "molecule":
+        b, n, e = (GNN_SHAPES["molecule"][k]
+                   for k in ("batch", "n_nodes", "n_edges"))
+        return [molecule_batch(b, n, e, step=k) for k in range(GNN_STEPS)], {}
+    if shape == "minibatch_lg":
+        return reddit_sampler()
+    s = GNN_SHAPES[shape]
+    g = CsrGraph(GraphSpec(n_nodes=s["n_nodes"], n_edges=s["n_edges"],
+                           d_feat=s["d_feat"], n_classes=16))
+    return [g.full_batch()] * GNN_STEPS, {}
+
+
+def drop_degenerate(tree):
+    """The GatedGCN params without the A biases: each feeds only a
+    BatchNorm over the nodes, which subtracts it again, so its gradient is
+    zero up to rounding and adam turns that rounding into steps of ±lr on
+    either device (tests/test_torch_gnn.py reads the JAX package so)."""
+    return dict(tree, layers=[{k: ({"w": v["w"]} if k == "A" else v)
+                               for k, v in layer.items()}
+                              for layer in tree["layers"]])
+
+
+def edge_sums(tree) -> dict:
+    """The GatedGCN leaves whose gradient is a sum over every edge of terms
+    that the edge BatchNorm makes cancel: the edge gates' biases (C, D and
+    E enter ê only through their sum, the same on every edge) and, at
+    layer 0, C's weight and the edge embedding (their input is the same on
+    every edge).  Summation order alone moves them by up to ~7e-5 of their
+    norm (the CPU alone, the molecule cell's step 0 with the edges
+    reordered and the ReLU decisions kept; other leaves ≤ 2.5e-5), so
+    ``gnn_shadow`` holds them to GNN_EDGE_SUM_TOL."""
+    return {"edge_embed": tree["edge_embed"],
+            "layers": [{k: ({"b": layer[k]["b"], "w": layer[k]["w"]}
+                            if (k == "C" and i == 0) else
+                            {"b": layer[k]["b"]}) for k in "CDE"}
+                       for i, layer in enumerate(tree["layers"])]}
+
+
+def gnn_rest(tree) -> dict:
+    """The GatedGCN leaves read at UPDATE_MEDIAN_TOL: all but the A biases
+    (``drop_degenerate``) and ``edge_sums``."""
+    t = drop_degenerate(tree)
+    layers = []
+    for i, layer in enumerate(t["layers"]):
+        layer = {k: ({"w": v["w"]} if k in "DE" or (k == "C" and i)
+                     else v) for k, v in layer.items() if (k, i) != ("C", 0)}
+        layers.append(layer)
+    return {k: (layers if k == "layers" else v) for k, v in t.items()
+            if k != "edge_embed"}
+
+
+def gnn_card_steps(shape: str, batches, held=None) -> tuple:
+    """GNN_STEPS adam steps (lr GNN_LR) of the full GatedGCN on the card,
+    then GNN_TIME_STEPS more timed (host clock, median); records the
+    steps in ``held`` (default: every step) for ``gnn_shadow``; returns
+    (the config; per recorded step: its index, the state before it on the
+    host, the card's params and adam first moment after it on the host,
+    its loss and its ReLU decisions (``ReluMasks``); the card's run
+    numbers)."""
+    dev = torch.device("cuda")
+    cfg = get_arch("gatedgcn").make_config("full", shape=shape)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = gcn.init_params(cfg, gen, dev)
+    optimizer = make_optimizer(OptimizerConfig(kind="adam", lr=GNN_LR))
+    tc = TrainConfig(max_restarts=0)
+    step_fn = build_train_step(lambda p, b: gcn.loss_fn(p, cfg, b),
+                               optimizer, tc)
+    state = init_state(params, optimizer, tc)
+    torch.cuda.reset_peak_memory_stats()
+    record, per = [], []
+    losses = []
+    for k, raw in enumerate(batches):
+        batch = {key: torch.from_numpy(v).to(dev) for key, v in raw.items()}
+        keep = held is None or k in held
+        old = to_device(state, "cpu") if keep else None
+        reset_launches()
+        with ReluMasks() if keep else contextlib.nullcontext() as rec:
+            state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        lm_expect(launch_counts(), {}, f"gatedgcn {shape} step {k}")
+        if keep:
+            record.append((k, old, to_device({"params": state["params"],
+                                              "m": state["opt"]["m"]},
+                                             "cpu"),
+                           losses[-1], rec.masks))
+    # the step's time, without the ReLU decisions' copies to the host
+    for raw in batches[:GNN_TIME_STEPS]:
+        batch = {key: torch.from_numpy(v).to(dev) for key, v in raw.items()}
+        (state, m), ms = synced_ms(lambda: step_fn(state, batch))
+        per.append(ms)
+    run = {"steps": len(batches), "lr": GNN_LR,
+           "losses": losses, "ms": statistics.median(per),
+           "ms_each": per,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "nodes": int(batches[0]["nodes"].shape[0]
+                        * batches[0]["nodes"].shape[1]),
+           "edges": int(batches[0]["edges"].shape[0]
+                        * batches[0]["edges"].shape[1])}
+    require(np.isfinite(run["losses"]).all(),
+            f"gatedgcn {shape}: losses {run['losses']}")
+    return cfg, record, run
+
+
+def grad_reading(err: "UpdateErr", old_m, card_m, cpu_m, keep=None):
+    """Adds to ``err`` one adam step's gradient, card against CPU from the
+    same first moment ``old_m``: the new moment is beta1·m + (1 - beta1)·g,
+    so against beta1·``old_m`` the moments' updates are (1 - beta1)·g on
+    each side, and ``UpdateErr`` reads |g_card - g_cpu| / |g_cpu|.
+    ``keep`` (a tree map) selects the leaves read."""
+    keep = keep or (lambda t: t)
+    base = tree_map(lambda t: t * ADAM_BETA1, old_m)
+    err.add(keep(base), keep(card_m), keep(cpu_m))
+
+
+def adam_readings(old, card, cpu, device="cpu") -> tuple:
+    """(gradient, params' update) ``UpdateErr``s of one adam step each,
+    card against CPU from the same ``old`` state: ``card`` and ``cpu`` are
+    {"params", "m"} after it.  The gradient (``grad_reading``, from adam's
+    first moment) is read as phase 3 reads updates.  Adam's first steps
+    move every element of the params by about lr·g/(|g| + eps), so an
+    element whose gradient is within rounding of 0 moves by ±lr with the
+    sign of that rounding: one such element of a 70 x 70 leaf reads 2/70
+    of its norm, so GatedGCN's update is kept as information
+    (``update_info``)."""
+    g_err = UpdateErr(old["opt"]["m"], device)
+    grad_reading(g_err, old["opt"]["m"], card["m"], cpu["m"])
+    p_err = UpdateErr(old["params"], device)
+    p_err.add(old["params"], card["params"], cpu["params"])
+    return g_err, p_err
+
+
+def update_info(err: UpdateErr) -> dict:
+    """An ``UpdateErr`` kept as information: the largest leaf median,
+    the steps with a leaf above UPDATE_TOL and how many elements were off
+    by more than 1e-3 of their leaf's norm."""
+    return {"max_median": max(err.medians().values()),
+            "flagged_steps": sorted({f["step"] for f in err.flagged}),
+            "elements_off": sum(f["elements"] for f in err.flagged)}
+
+
+def lost_edges(rows):
+    """A planted fault: ``gcn._segment_sum`` without the contributions of
+    edge rows ``rows`` (atomic adds lost from every segment sum of every
+    layer)."""
+    real = gcn._segment_sum
+    rows = torch.as_tensor(rows)
+
+    def faulty(vals, seg, n):
+        return real(vals.index_fill(0, rows, 0), seg, n)
+    return unittest.mock.patch.object(gcn, "_segment_sum", faulty)
+
+
+def gnn_shadow(shape: str, cfg, record, batches, planted: bool = False
+               ) -> dict:
+    """Each recorded card step against the CPU step from the same state,
+    taken in the card step's ReLU decisions (``ReluMasks``; the decisions
+    that differ are counted, at most RELU_FLIP_LIMIT[shape] a step): its
+    loss within GNN_LOSS_TOL of it (relative) and each leaf of its
+    gradient (``grad_reading``) read by ``UpdateErr`` as phase 3 reads
+    updates (``gnn_rest``; ``edge_sums`` with their median within
+    GNN_EDGE_SUM_TOL); the params' update reading kept as information
+    (``update_info``).  With ``planted``, also what the two gradient
+    readings give the first step's CPU step with ``lost_edges`` in place
+    of the card's: its first valid edge, and every 100th (not held: it
+    shows what the limits let through)."""
+    optimizer = make_optimizer(OptimizerConfig(kind="adam", lr=GNN_LR))
+    cpu_step = build_train_step(lambda p, b: gcn.loss_fn(p, cfg, b),
+                                optimizer, TrainConfig())
+    first = record[0][1]
+    g_err = UpdateErr(gnn_rest(first["opt"]["m"]))
+    e_err = UpdateErr(edge_sums(first["opt"]["m"]))
+    p_err = UpdateErr(drop_degenerate(first["params"]))
+    diffs, flips = [], []
+    t0 = time.perf_counter()
+    for k, old, card, loss, masks in record:
+        host = {key: torch.from_numpy(v) for key, v in batches[k].items()}
+        with ReluMasks(masks) as rep:
+            want, wm = cpu_step(old, host)
+        require(rep.at == len(masks) > 0,
+                f"gatedgcn {shape}: the CPU step made {rep.at} ReLU calls, "
+                f"the card's {len(masks)}")
+        flips.append(rep.flips)
+        wl = float(wm["loss"])
+        diffs.append(abs(loss - wl) / max(1.0, abs(wl)))
+        for err, keep in ((g_err, gnn_rest), (e_err, edge_sums)):
+            grad_reading(err, old["opt"]["m"], card["m"], want["opt"]["m"],
+                         keep)
+        p_err.add(drop_degenerate(old["params"]),
+                  drop_degenerate(card["params"]),
+                  drop_degenerate(want["params"]))
+        if planted and k == record[0][0]:
+            valid = np.flatnonzero(batches[k]["edges"][..., 0].reshape(-1)
+                                   >= 0)
+            fault = {}
+            for label, rows in (("one_edge", valid[:1]),
+                                ("every_100th_edge", valid[::100])):
+                with lost_edges(rows), ReluMasks(masks):
+                    bad, _ = cpu_step(old, host)
+                fault[label] = {"edges": len(rows)}
+                for name, keep in (("rest", gnn_rest),
+                                   ("edge_sums", edge_sums)):
+                    err = UpdateErr(keep(first["opt"]["m"]))
+                    grad_reading(err, old["opt"]["m"], bad["opt"]["m"],
+                                 want["opt"]["m"], keep)
+                    fault[label][name] = max(err.medians().values())
+                del bad
+    cpu_s = time.perf_counter() - t0
+    what = f"gatedgcn {shape}"
+    require(max(flips) <= RELU_FLIP_LIMIT[shape],
+            f"{what}: the CPU steps took {flips} ReLU decisions from the "
+            f"card's (at most {RELU_FLIP_LIMIT[shape]} a step)")
+    require(max(diffs) <= GNN_LOSS_TOL,
+            f"{what}: a card step's loss differs from the CPU step's from "
+            f"the same state by {max(diffs)} of it")
+    read = g_err.check(f"{what} gradient")
+    edge = e_err.check(f"{what} gradient of the edge sums",
+                       median_tol=GNN_EDGE_SUM_TOL)
+    out = {"held_steps": [r[0] for r in record],
+           "max_step_loss_rel_diff": max(diffs), "relu_flips": flips,
+           "grad_max_median": read["max_median"],
+           "grad_worst_leaf": max(read["median"], key=read["median"].get),
+           "grad_flagged_steps": read["flagged_steps"],
+           "edge_sums_max_median": edge["max_median"],
+           "params_update": update_info(p_err), "cpu_s": cpu_s}
+    if planted:
+        out["lost_edges_read"] = fault
+    return out
+
+
+def lm_gnn(rates, dev, smi: str) -> dict:
+    """Phase (i), one part after another with nothing beside the timed
+    runs: GatedGCN's three cells (``gnn_card_steps``, their GNN_HELD steps
+    held by ``gnn_shadow``, molecule's with the planted fault's reading),
+    then ``lm_full_depth`` and ``lm_reduced_depth`` of each of
+    LM_REDUCED."""
+    t0 = time.perf_counter()
+    parts = Parts()
+    out = {"card": smi}
+    gnn = out["gatedgcn"] = {}
+    for shape in ("full_graph_sm", "molecule", "minibatch_lg"):
+        with parts(f"{shape}_batches"):
+            batches, graph = gnn_batches(shape)
+        with parts(f"{shape}_card"):
+            cfg, record, run = gnn_card_steps(shape, batches,
+                                              GNN_HELD.get(shape))
+        with parts(f"{shape}_cpu"):
+            run["check"] = gnn_shadow(shape, cfg, record, batches,
+                                      planted=shape == "molecule")
+        gnn[shape] = dict(run, **graph)
+        del record, batches
+    with parts("lm_full_depth"):
+        out["lm_full_depth"] = lm_full_depth(rates, dev)
+    out["lm_reduced_depth"] = {}
+    for arch in LM_REDUCED:
+        with parts(arch):
+            out["lm_reduced_depth"][arch] = lm_reduced_depth(arch, dev)
+    out["parts_s"] = parts.s
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3069,14 +3985,22 @@ def mesh_robe_path(ctx, cfg: ServerConfig, params) -> dict:
 def device_ms(fn, inputs, inner: int = 8) -> float:
     """Median per-call device time of ``fn(*args)`` over REPS repetitions
     of ``inner`` calls cycling through ``inputs``, queued behind a sleep
-    kernel so that the calls run back to back on the card."""
+    kernel so that the calls run back to back on the card: the sleep
+    lasts three times the host's time to queue the ``inner`` calls, plus
+    1 ms."""
     fn(*inputs[0])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(inner):
+        fn(*inputs[i % len(inputs)])
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(SLEEP_CYCLES_MS * (3 * queue_ms + 1))
     per = []
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(40_000_000)          # ~20 ms: the queue fills
+        torch.cuda._sleep(cycles)
         start.record()
         for i in range(inner):
             fn(*inputs[i % len(inputs)])
@@ -3086,14 +4010,20 @@ def device_ms(fn, inputs, inner: int = 8) -> float:
     return statistics.median(per)
 
 
+def synced_ms(fn):
+    """(fn()'s result, its host-clock ms with the card drained before and
+    after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def host_ms(fn, reps: int = REPS) -> float:
+    """Median of ``reps`` ``synced_ms`` of ``fn`` after one warm call."""
     fn()
-    per = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        per.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(per)
+    return statistics.median(synced_ms(fn)[1] for _ in range(reps))
 
 
 def touched_slots(spec, idx, chunk: int = 8192, table_ids=None,
@@ -3403,38 +4333,69 @@ def serve_bwd_times(sf: dict, gen, spec, subs, rows, uniq: int, rates,
         list(zip(rows, cts, bots)))
 
 
-def device_breakdown(fn, calls: int = 3) -> dict:
-    """Device time per call of ``fn`` by kernel name (``torch.profiler``)
-    and the card's busy share of the host-clock window."""
+#: kernel name -> class in ``device_breakdown`` (first match)
+KERNEL_CLASSES = (("robe", ("robe_", "rb_")),
+                  ("gemm", ("gemm", "Gemm", "cutlass", "xmma", "sm90_",
+                            "cublas", "Kernel2", "nvjet")),
+                  ("softmax", ("softmax", "Softmax")),
+                  ("reduce", ("reduce", "Reduce")),
+                  ("index", ("index", "scatter", "gather", "Index")),
+                  ("copy", ("Memcpy", "Memset", "copy", "Copy", "cat")))
+
+
+def device_breakdown(fn, calls: int = 3, warm: bool = True) -> dict:
+    """Device time per call of ``fn`` by kernel name and by kernel class
+    (``KERNEL_CLASSES``, the rest "elementwise/other"; ``torch.profiler``
+    of the card's activity), the ROBE kernels' share, and the card's busy
+    share of the host-clock window; ``warm`` calls ``fn`` once before.  A
+    trace that came back with no device event (a short one sometimes
+    does on the card) is taken again, up to PROFILE_TRIES in all; if every
+    try is empty, the shares are None and the tables empty."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+    if warm:
+        fn()
+    for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    per = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            per[evt.name[:60]] = per.get(evt.name[:60], 0.0) + \
-                evt.time_range.elapsed_us()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        per = {}
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA:
+                per[evt.name] = per.get(evt.name, 0.0) + \
+                    evt.time_range.elapsed_us()
+        if per:
+            break
     busy = sum(per.values())
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:20]
+    top = {}
+    for name, us in per.items():
+        top[name[:60]] = top.get(name[:60], 0.0) + us
+    top = sorted(top.items(), key=lambda kv: -kv[1])[:20]
+    by = {}
+    for name, us in per.items():
+        c = next((c for c, keys in KERNEL_CLASSES
+                  if any(k in name for k in keys)), "elementwise/other")
+        by[c] = by.get(c, 0.0) + us
     return {"wall_ms": wall_us / calls / 1e3,
             "device_ms": busy / calls / 1e3,
-            "busy_share": busy / wall_us if per else None,
-            "top_ms": {k: v / calls / 1e3 for k, v in top}}
+            "busy_share": busy / wall_us if busy else None,
+            "by_class_ms": {k: v / calls / 1e3 for k, v in sorted(
+                by.items(), key=lambda kv: -kv[1])},
+            "robe_share": by.get("robe", 0.0) / busy if busy else None,
+            "top_ms": {k: v / calls / 1e3 for k, v in top},
+            "profile_tries": tries}
 
 
-def time_train_step(cfg: RecsysConfig, params, batch=None) -> dict:
+def time_train_step(cfg: RecsysConfig, params, batch=None,
+                    reps: int = 7) -> dict:
     """One full-width adagrad ``step_fn`` at B=65536 (with qrobe's
     ``project``) on ``batch`` (default: the dlrm stream's first batch):
-    host-clock median of 7 (batch on the card, the loss read back as
-    ``run`` reads it), and its device breakdown."""
+    host-clock median of ``reps`` (batch on the card, the loss read back
+    as ``run`` reads it), and its device breakdown."""
     optimizer = make_optimizer(OptimizerConfig(kind="adagrad", lr=1e-3))
     tc = TrainConfig()
     step_fn = build_train_step(lambda p, b: loss_fn(p, cfg, b), optimizer,
@@ -3446,7 +4407,7 @@ def time_train_step(cfg: RecsysConfig, params, batch=None) -> dict:
     def one():
         box["state"], m = step_fn(box["state"], batch)
         float(m["loss"])
-    ms = host_ms(one, reps=7)
+    ms = host_ms(one, reps=reps)
     prof = device_breakdown(one)
     return {"step_ms": ms, "batch": int(batch["sparse"].shape[0]),
             "profile": prof}
@@ -3625,6 +4586,13 @@ def main() -> int:
     tdist.destroy_process_group()
     print(f"mesh phase ok ({mesh_res['wall_s']:.1f} s)")
 
+    # (i) the LM family and GatedGCN, on a card the earlier phases left
+    torch.cuda.empty_cache()
+    lmg = lm_gnn(rates, dev, smi)
+    print(f"LM family and GatedGCN ok ({lmg['wall_s']:.1f} s): "
+          + json.dumps({k: round(v, 1) for k, v in lmg["parts_s"].items()}))
+    lm_runs = lmg["lm_full_depth"]["robe"]
+
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],
                 "serve_fused": c_fused["serve_fused"],
@@ -3641,6 +4609,14 @@ def main() -> int:
                "max_abs_err_bf16": err[k]["bfloat16"]}
         if k in TRAIN_KERNELS["robe"]:    # (h)'s ZeRO-3 steps
             row["launches_mesh"] = launches_mesh[k]
+        if k in ("robe_lookup", "robe_lookup_bwd"):   # (i)'s LM runs
+            row["launches_lm"] = {
+                "prefill": lm_runs["prefill"]["launches"].get(k, 0),
+                "decode_step": lm_runs["decode"]["launches_per_step"].get(
+                    k, 0),
+                "train_step": lm_runs["train"]["launches_per_step"].get(
+                    k, 0)}
+            row["lm"] = lmg["lm_full_depth"]["kernels"][k]
         if "over_a" in err[k]:            # the scatter's error / A
             row["max_err_over_a"] = err[k]["over_a"]["float32"]
             row["max_err_over_a_bf16"] = err[k]["over_a"]["bfloat16"]
@@ -3655,6 +4631,7 @@ def main() -> int:
     print(json.dumps({"serve_fused_bwd": sf_bwd}))
     print(json.dumps({"recsys_family": family}))
     print(json.dumps({"mesh": mesh_res}))
+    print(json.dumps({"lm_gnn": lmg}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

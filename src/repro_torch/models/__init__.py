@@ -1,1 +1,2 @@
-"""Models (PyTorch port of ``repro.models``; DLRM only, so far)."""
+"""Models (PyTorch port of ``repro.models``): the recsys family, the LM
+family (``transformer``) and GatedGCN."""

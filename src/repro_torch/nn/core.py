@@ -66,3 +66,74 @@ def mlp_apply(layers: list, x: torch.Tensor,
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# norms: f32 statistics, output in the input's dtype
+# ---------------------------------------------------------------------------
+
+def layer_norm_init(dim: int, device) -> dict:
+    return {"g": torch.ones((dim,), dtype=torch.float32, device=device),
+            "b": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def layer_norm_apply(p: dict, x: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"] + p["b"]).to(x.dtype)
+
+
+def rms_norm_init(dim: int, device) -> dict:
+    return {"g": torch.ones((dim,), dtype=torch.float32, device=device)}
+
+
+class _RmsNorm(torch.autograd.Function):
+    """RMS norm with the JAX package's custom backward (``_rms_bwd``): f32
+    internals, ``dx`` returned in ``x``'s dtype and ``dg`` in f32 (so a
+    bf16 backward is not autograd of the forward)."""
+
+    @staticmethod
+    def forward(ctx, g, x, eps):
+        ctx.save_for_backward(g, x)
+        ctx.eps = eps
+        xf = x.to(torch.float32)
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * g).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g, x = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        ctf = ct.to(torch.float32)
+        ms = (xf * xf).mean(-1, keepdim=True) + ctx.eps
+        r = torch.rsqrt(ms)
+        dy = ctf * g                       # d/d(normalized x)
+        dg = (ctf * (xf * r)).sum(tuple(range(ct.dim() - 1)))
+        dx = r * (dy - xf * (dy * xf).mean(-1, keepdim=True) / ms)
+        return dg.to(torch.float32), dx.to(x.dtype), None
+
+
+def rms_norm_apply(p: dict, x: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    return _RmsNorm.apply(p["g"], x, eps)
+
+
+def batch_norm_init(dim: int, device) -> dict:
+    # training-mode BN (batch statistics); GatedGCN benchmark default
+    return {"g": torch.ones((dim,), dtype=torch.float32, device=device),
+            "b": torch.zeros((dim,), dtype=torch.float32, device=device)}
+
+
+def batch_norm_apply(p: dict, x: torch.Tensor, eps: float = 1e-5,
+                     axes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Normalise over ``axes`` (default: every axis but the last) with the
+    batch's own statistics (biased variance)."""
+    xf = x.to(torch.float32)
+    axes = tuple(range(xf.dim() - 1)) if axes is None else tuple(axes)
+    mu = xf.mean(axes, keepdim=True)
+    var = xf.var(axes, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["g"] + p["b"]).to(x.dtype)

@@ -434,15 +434,17 @@ def test_bundles_match_jax(arch, variant):
 
 def test_vocab_layouts_and_registry_match_jax():
     from repro.configs import recsys_archs as jra
+    # the JAX registry loads its bundle modules only while it is empty:
+    # register the LM and GNN bundles too, whatever ran before
+    from repro.configs import gnn_archs, lm_archs  # noqa: F401
     assert CRITEO_KAGGLE_VOCABS == jra.CRITEO_KAGGLE_VOCABS
     assert CRITEO_39 == jra.CRITEO_39 and len(CRITEO_39) == 39
     assert TWO_TOWER_VOCABS == jra.TWO_TOWER_VOCABS
     recsys = tuple(a for a in j_all_arch_ids()
                    if j_get_arch(a).kind == "recsys")
-    assert all_arch_ids() == recsys
-    assert ARCH_IDS == recsys + ("dlrm-criteo-tb",)
-    for arch in ARCH_IDS:
-        assert t_get_arch(arch).kind == "recsys"
+    assert all_arch_ids() == j_all_arch_ids()
+    assert tuple(a for a in ARCH_IDS if t_get_arch(a).kind == "recsys") \
+        == recsys + ("dlrm-criteo-tb",)
     # registering the new bundles leaves the DLRM ones as they were
     assert t_get_arch("dlrm-criteo-tb").make_config("full").robe_size \
         == 26_135_627
