@@ -232,10 +232,29 @@ non-zero on failure:
    on its cache, and for ``qwen1.5-32b`` 16 decode steps at B = 8 on 32,768
    slots with an int8 cache against a bf16 cache of the same keys and
    values;
+   then (j) the LM family and GatedGCN on a new one-rank NCCL mesh
+   (``lm_gnn_mesh``), each call on the mesh held to the same call without
+   it from the same state: ``qwen3-0.6b`` robe at full width and depth in
+   f32 (params placed by ``transformer_specs``): a prefill of 4,096 tokens
+   (``collect_cache``), 4 decode steps on caches cut along the sequence
+   (``fill_cache``), logits within 1e-5, and 2 adam steps at B = 4, T =
+   4,096 (remat), the loss within 1e-5 and the gradient (adam's first
+   moment, ``UpdateErr``) with every leaf's median within 1e-5; one
+   ``robe_lookup`` a forward and one ``robe_lookup_bwd`` a step, the
+   collectives a call; ``qwen3-moe-30b-a3b`` at full width and 2 layers
+   in f32, ``moe_dispatch="ep"`` at a capacity where no slot can drop
+   against the dense dispatch without the mesh (a prefill of 4,096 tokens
+   and 4 decode steps within 1e-5, two ``all_to_all`` a MoE layer a
+   forward), then at the config's 1.25 the prefill's dropped slots
+   (``Drops``); GatedGCN ``full_graph_sm`` through the edge-parallel body,
+   3 adam steps held as (i) holds them, then timed in turns with the steps
+   without the mesh; each path's times and peak memory;
 6. one JSON line of the recsys family's numbers, one of (h)'s, one of
-   (i)'s, one of kernel numbers (the training kernels' ``launches_mesh``:
-   (h)'s five ZeRO-3 steps; the ROBE kernels' ``launches_lm`` and ``lm``
-   times at (i)'s shapes), then, last, the ok line.
+   (i)'s, one of (j)'s, one of kernel numbers (the training kernels'
+   ``launches_mesh``: (h)'s five ZeRO-3 steps; the ROBE kernels'
+   ``launches_lm`` and ``lm`` times at (i)'s shapes and
+   ``launches_lm_mesh`` of (j)'s prefill, decode step and training step),
+   then, last, the ok line.
 """
 
 from __future__ import annotations
@@ -272,7 +291,8 @@ from repro_torch.data import (CsrGraph, CtrDataConfig, CtrStream,
                               molecule_batch, retrieval_batch)
 from repro_torch.dist import api as dist
 from repro_torch.dist import collectives as coll
-from repro_torch.dist.param_specs import recsys_specs
+from repro_torch.dist.param_specs import (recsys_specs, replicated_specs,
+                                          transformer_specs)
 from repro_torch.kernels import (_build, dot_interaction_bwd_cuda,
                                  dot_interaction_cuda, launch_counts,
                                  qr_lookup_bwd_cuda, qr_lookup_cuda,
@@ -302,6 +322,7 @@ from repro_torch.models.recsys import (RecsysConfig, forward, init_params,
                                        loss_fn, make_project_fn,
                                        serve_scores)
 from repro_torch.nn import attention as attn_mod
+from repro_torch.nn import moe as moe_mod
 from repro_torch.nn.embeddings import get_backend
 from repro_torch.nn.embedding_backends.hashed import (default_buckets,
                                                       qr_layout)
@@ -477,6 +498,14 @@ LM_REDUCED_T = 4096
 #: (8 to 40 chunks of 128 a row), each LM's 8x array
 LM_ROBE = ("qwen3-0.6b", "qwen3-moe-30b-a3b", "minicpm3-4b", "qwen1.5-32b")
 LM_PHASE2_BATCHES = (1, 509, 4096)
+#: (j) the LM and GatedGCN on the one-rank mesh, each held to the same
+#: call without it: J_ARCH at full width and depth, f32 (robe); J_MOE_ARCH
+#: at J_MOE_LAYERS layers, EP against the dense dispatch; GatedGCN's
+#: full_graph_sm edge-parallel
+J_ARCH, J_MOE_ARCH, J_MOE_LAYERS = "qwen3-0.6b", "qwen3-moe-30b-a3b", 2
+J_PREFILL_T, J_DECODE_STEPS = 4096, 4
+J_TRAIN_B, J_TRAIN_T, J_TRAIN_STEPS = 4, 4096, 2
+J_GNN_STEPS, J_TOL = 3, 1e-5
 #: GatedGCN's full config, cells.py's adam lr; minibatch_lg samples a
 #: graph of Reddit's 232,965 nodes and REDDIT_EDGES of its 114,615,892
 #: edges (the most whose CsrGraph numpy builds in about 10 s on one core)
@@ -3979,6 +4008,383 @@ def mesh_robe_path(ctx, cfg: ServerConfig, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase (j): the LM family and GatedGCN on the one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def j_placed(ctx, params, cfg) -> tuple:
+    """``params`` placed on the mesh by ``transformer_specs`` (pruned; on
+    one rank each shard is the leaf itself) and the spec tree."""
+    specs = dist.prune_specs(transformer_specs(params, ctx.rules), params,
+                             ctx.mesh)
+    return dist.place(params, specs, ctx), specs
+
+
+def j_call(ctx, specs, fn):
+    """(fn()'s result, host ms, kernel launches, collectives) of one call
+    under the mesh, the counts set to 0 just before it."""
+    with dist.use(ctx), dist.placed(specs):
+        reset_launches()
+        coll.counts.clear()
+        out, ms = synced_ms(fn)
+        return out, ms, launch_counts(), dict(coll.counts)
+
+
+def j_hold(what: str, got, want) -> float:
+    err = max_err(got, want)
+    require(torch.allclose(got, want, rtol=J_TOL, atol=J_TOL),
+            f"(j) {what}: the mesh's result is {err} from the run without "
+            f"one (tolerance {J_TOL})")
+    return err
+
+
+def j_lm_dense(ctx, dev) -> dict:
+    """(j) 1: J_ARCH at full width and depth, ``robe`` (8x), f32 compute
+    and caches: a prefill of 1 x J_PREFILL_T tokens (``collect_cache``),
+    J_DECODE_STEPS decode steps on caches cut along the sequence
+    (``fill_cache``), J_TRAIN_STEPS adam steps (lr LM_LR, remat) at B =
+    J_TRAIN_B, T = J_TRAIN_T; each on the mesh (params placed by
+    ``transformer_specs``) held to the same call without one from the
+    same state: logits within J_TOL, a step's loss within J_TOL and its
+    gradient (adam's first moment, ``grad_reading``) with every leaf's
+    median reading within J_TOL.  Reads one ``robe_lookup`` a forward and
+    one ``robe_lookup_bwd`` a step, and the collectives a call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cfg = lm_config(J_ARCH, "robe", compute_dtype=torch.float32,
+                    cache_dtype=torch.float32)
+    params = lm.init_params(cfg, gen, dev)
+    mparams, specs = j_placed(ctx, params, cfg)
+    toks = lm_tokens(cfg, 1, J_PREFILL_T + J_DECODE_STEPS, 11)["tokens"]
+    out = {"arch": J_ARCH, "params": cfg.param_count()}
+    runs = {}
+    for label, c, p, sp in (("plain", None, params, None),
+                            ("mesh", ctx, mparams, specs)):
+        torch.cuda.reset_peak_memory_stats()
+        with dist.use(c) if c else contextlib.nullcontext(), \
+                dist.placed(sp), torch.inference_mode():
+            reset_launches()
+            coll.counts.clear()
+            (last, _, pre), ms = synced_ms(lambda: lm.forward(
+                p, cfg, toks[:, :J_PREFILL_T], collect_cache=True,
+                logits_mode="last"))
+            pf = {"ms": ms, "launches": launch_counts(),
+                  "collectives": dict(coll.counts)}
+            caches = lm.fill_cache(cfg, lm.init_cache(
+                cfg, 1, J_PREFILL_T + J_DECODE_STEPS, dev), pre,
+                J_PREFILL_T)
+            del pre
+            steps, dec = [], []
+            for t in range(J_PREFILL_T, J_PREFILL_T + J_DECODE_STEPS):
+                reset_launches()
+                coll.counts.clear()
+                (lg, caches), ms = synced_ms(lambda: lm.decode_step(
+                    p, cfg, caches, toks[:, t:t + 1], t))
+                steps.append(lg)
+                dec.append({"ms": ms, "launches": launch_counts(),
+                            "collectives": dict(coll.counts)})
+            del caches
+        runs[label] = {"last": last, "steps": steps, "prefill": pf,
+                       "decode": dec,
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()}
+        lm_expect(pf["launches"], {"robe_lookup": 1}, f"(j) {label} prefill")
+        for d in dec:
+            lm_expect(d["launches"], {"robe_lookup": 1},
+                      f"(j) {label} decode step")
+    m, w = runs["mesh"], runs["plain"]
+    out["prefill_logits_max_diff"] = j_hold("prefill logits", m["last"],
+                                            w["last"])
+    out["decode_logits_max_diff"] = max(
+        j_hold(f"decode step {k}", a, b)
+        for k, (a, b) in enumerate(zip(m["steps"], w["steps"])))
+    require(m["prefill"]["collectives"].get("all_gather", 0) > 0 and
+            all(d["collectives"].get("all_reduce", 0) > 0
+                for d in m["decode"]),
+            f"(j) {J_ARCH}: the mesh's calls exchanged nothing: "
+            f"{m['prefill']['collectives']}, {m['decode'][0]['collectives']}")
+    for label in runs:
+        r = runs[label]
+        out[label] = {"prefill_ms": r["prefill"]["ms"],
+                      "decode_ms": [d["ms"] for d in r["decode"]],
+                      "max_memory_allocated_serve":
+                          r["max_memory_allocated"]}
+    out["mesh"]["prefill_collectives"] = m["prefill"]["collectives"]
+    out["mesh"]["decode_collectives"] = m["decode"][-1]["collectives"]
+    out["launches"] = {"prefill": mean_launches([m["prefill"]["launches"]]),
+                       "decode_step": mean_launches(
+                           [d["launches"] for d in m["decode"]])}
+    del runs, m, w
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, remat=True)
+    opt = make_optimizer(OptimizerConfig(kind="adam", lr=LM_LR))
+    tc = TrainConfig(max_restarts=0)
+    plain = build_train_step(lambda q, b: lm.loss_fn(q, tcfg, b), opt, tc)
+    state = init_state(params, opt, tc)
+    g_err = UpdateErr(state["opt"]["m"], "cuda")
+    train = {"plain_ms": [], "mesh_ms": [], "loss_diff": [],
+             "launches": [], "collectives": [], "max_memory_allocated": []}
+    with dist.use(ctx):
+        mesh = build_train_step(lambda q, b: lm.loss_fn(q, tcfg, b), opt,
+                                tc, specs=specs)
+    for k in range(J_TRAIN_STEPS):
+        batch = lm_tokens(tcfg, J_TRAIN_B, J_TRAIN_T, k)
+        # the step without the mesh first; of it only adam's first moment
+        # and the loss are kept
+        torch.cuda.reset_peak_memory_stats()
+        (want, wm), ms = synced_ms(lambda: plain(state, batch))
+        want_m, want_loss = want["opt"]["m"], float(wm["loss"])
+        del want
+        train["plain_ms"].append(ms)
+        (new, nm), ms, launches, cc = j_call(ctx, specs,
+                                             lambda: mesh(state, batch))
+        train["max_memory_allocated"].append(
+            torch.cuda.max_memory_allocated())
+        train["mesh_ms"].append(ms)
+        train["launches"].append({n: v for n, v in launches.items() if v})
+        train["collectives"].append(cc)
+        lm_expect(launches, lm_step_kernels(tcfg, train=True),
+                  f"(j) {J_ARCH} mesh train step {k}")
+        loss = float(nm["loss"])
+        train["loss_diff"].append(abs(loss - want_loss))
+        require(abs(loss - want_loss) <= J_TOL * max(1.0, abs(want_loss)),
+                f"(j) {J_ARCH} train step {k}: loss {loss} on the mesh, "
+                f"{want_loss} without")
+        grad_reading(g_err, state["opt"]["m"], new["opt"]["m"], want_m)
+        del want_m
+        state = new
+    read = g_err.check(f"(j) {J_ARCH} mesh train steps' gradient",
+                       median_tol=J_TOL)
+    train["grad_max_reading"] = read["max_median"]
+    out["train"] = train
+    out["launches"]["train_step"] = mean_launches(train["launches"])
+    del state, params, mparams
+    torch.cuda.empty_cache()
+    return out
+
+
+class Drops:
+    """Within it, every ``moe_apply_ep`` call of the transformer also
+    counts the (token, choice) slots its capacity drops, from the same
+    router: ``slots`` and ``dropped``."""
+
+    def __init__(self):
+        self.slots, self.dropped = 0, 0
+
+    def __enter__(self):
+        self.orig = fn = lm.moe_apply_ep
+
+        def wrapped(p, cfg, x, *a, **k):
+            _, idx, _ = moe_mod._router(p, cfg, x)
+            cnt = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+            cap = moe_mod.capacity(cfg, x.shape[0])
+            self.slots += idx.numel()
+            self.dropped += int((cnt - cap).clamp_min(0).sum())
+            return fn(p, cfg, x, *a, **k)
+        lm.moe_apply_ep = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        lm.moe_apply_ep = self.orig
+
+
+def j_lm_moe(ctx, dev) -> dict:
+    """(j) 2: J_MOE_ARCH at full width, J_MOE_LAYERS layers, ``full``,
+    f32: with ``moe_dispatch="ep"`` on the mesh at a capacity where no
+    slot can drop (capacity_factor E / k: an expert's slots hold every
+    token), a prefill of 1 x J_PREFILL_T and J_DECODE_STEPS decode steps
+    held to the dense dispatch without the mesh (J_TOL), two all_to_alls
+    a MoE layer a forward; then at the config's capacity_factor the
+    prefill's dropped slots (``Drops``)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    base = lm_config(J_MOE_ARCH, n_layers=J_MOE_LAYERS,
+                     compute_dtype=torch.float32, cache_dtype=torch.float32)
+    params = lm.init_params(base, gen, dev)
+    dense = dataclasses.replace(base, moe_dispatch="dense")
+    ep = dataclasses.replace(base, moe_dispatch="ep", capacity_factor=float(
+        base.n_experts // base.top_k))
+    toks = lm_tokens(base, 1, J_PREFILL_T + J_DECODE_STEPS, 13)["tokens"]
+    mparams, specs = j_placed(ctx, params, base)
+    out = {"arch": J_MOE_ARCH, "layers": J_MOE_LAYERS,
+           "params": base.param_count(),
+           "capacity_factor_held": ep.capacity_factor}
+    runs = {}
+    for label, cfg, c, p, sp in (("dense", dense, None, params, None),
+                                 ("ep", ep, ctx, mparams, specs)):
+        torch.cuda.reset_peak_memory_stats()
+        with dist.use(c) if c else contextlib.nullcontext(), \
+                dist.placed(sp), torch.inference_mode(), Drops() as dr:
+            coll.counts.clear()
+            (last, _, pre), pms = synced_ms(lambda: lm.forward(
+                p, cfg, toks[:, :J_PREFILL_T], collect_cache=True,
+                logits_mode="last"))
+            pcc = dict(coll.counts)
+            caches = lm.fill_cache(cfg, lm.init_cache(
+                cfg, 1, J_PREFILL_T + J_DECODE_STEPS, dev), pre,
+                J_PREFILL_T)
+            del pre
+            steps, dms, dcc = [], [], []
+            for t in range(J_PREFILL_T, J_PREFILL_T + J_DECODE_STEPS):
+                coll.counts.clear()
+                (lg, caches), ms = synced_ms(lambda: lm.decode_step(
+                    p, cfg, caches, toks[:, t:t + 1], t))
+                steps.append(lg)
+                dms.append(ms)
+                dcc.append(dict(coll.counts))
+            del caches
+        runs[label] = (last, steps)
+        out[label] = {"prefill_ms": pms, "decode_ms": dms,
+                      "prefill_collectives": pcc,
+                      "decode_collectives": dcc[-1],
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated(),
+                      "dropped_slots": dr.dropped, "slots": dr.slots}
+    n_moe = J_MOE_LAYERS - base.first_k_dense
+    ep_out = out["ep"]
+    require(ep_out["prefill_collectives"].get("all_to_all") == 2 * n_moe and
+            all(c.get("all_to_all") == 2 * n_moe for c in dcc),
+            f"(j) {J_MOE_ARCH} EP: all_to_all {ep_out['prefill_collectives']}"
+            f" / {dcc}; expected 2 a MoE layer a forward")
+    require(ep_out["dropped_slots"] == 0,
+            f"(j) {J_MOE_ARCH} EP dropped {ep_out['dropped_slots']} slots at "
+            f"capacity_factor {ep.capacity_factor}")
+    out["prefill_logits_max_diff"] = j_hold(
+        f"{J_MOE_ARCH} EP prefill logits", runs["ep"][0], runs["dense"][0])
+    out["decode_logits_max_diff"] = max(
+        j_hold(f"{J_MOE_ARCH} EP decode step {k}", a, b)
+        for k, (a, b) in enumerate(zip(runs["ep"][1], runs["dense"][1])))
+    del runs
+    # at the config's capacity: how many slots the EP prefill drops
+    at_cap = dataclasses.replace(base, moe_dispatch="ep")
+    with dist.use(ctx), dist.placed(specs), torch.inference_mode(), \
+            Drops() as dr:
+        lg, ms = synced_ms(lambda: lm.forward(
+            mparams, at_cap, toks[:, :J_PREFILL_T], logits_mode="last")[0])
+    require(bool(torch.isfinite(lg).all()),
+            f"(j) {J_MOE_ARCH} EP at capacity {base.capacity_factor}: "
+            f"logits not finite")
+    out["capacity_config"] = {"capacity_factor": base.capacity_factor,
+                              "prefill_ms": ms, "dropped_slots": dr.dropped,
+                              "slots": dr.slots}
+    del params, mparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def j_gnn(ctx, dev) -> dict:
+    """(j) 3: GatedGCN ``full_graph_sm`` (one graph of 10,556 edges: the
+    edge-parallel body) at full width: J_GNN_STEPS adam steps (lr GNN_LR)
+    on the mesh, each held to the step without it from the same state as
+    phase (i) holds GatedGCN (``gnn_shadow``): the step's loss within
+    GNN_LOSS_TOL, its gradient read by ``grad_reading`` (``gnn_rest`` at
+    UPDATE_MEDIAN_TOL, ``edge_sums`` at GNN_EDGE_SUM_TOL), the step
+    without the mesh taken in the mesh step's ReLU decisions
+    (``ReluMasks``, at most RELU_FLIP_LIMIT of them differing); then
+    GNN_TIME_STEPS steps of each, timed in turns."""
+    shape = "full_graph_sm"
+    cfg = get_arch("gatedgcn").make_config("full", shape=shape)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = gcn.init_params(cfg, gen, dev)
+    batches, _ = gnn_batches(shape)
+    raw = batches[0]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    optimizer = make_optimizer(OptimizerConfig(kind="adam", lr=GNN_LR))
+    tc = TrainConfig(max_restarts=0)
+    specs = replicated_specs(params)
+    plain = build_train_step(lambda p, b: gcn.loss_fn(p, cfg, b),
+                             optimizer, tc)
+    mesh = build_train_step(lambda p, b: gcn.loss_fn(p, cfg, b), optimizer,
+                            tc, specs=specs)
+    state = init_state(params, optimizer, tc)
+    g_err = UpdateErr(gnn_rest(state["opt"]["m"]), "cuda")
+    e_err = UpdateErr(edge_sums(state["opt"]["m"]), "cuda")
+    out = {"edges": int(raw["edges"].shape[1]), "steps": J_GNN_STEPS,
+           "loss_rel_diff": [], "relu_flips": [], "collectives": []}
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(J_GNN_STEPS):
+        with ReluMasks() as rec:
+            (new, nm), _, launches, cc = j_call(ctx, specs,
+                                                lambda: mesh(state, batch))
+        lm_expect(launches, {}, f"(j) gatedgcn mesh step {k}")
+        out["collectives"].append(cc)
+        with ReluMasks(rec.masks) as rep:
+            want, wm = plain(state, batch)
+        require(rep.at == len(rec.masks) > 0,
+                f"(j) gatedgcn: {rep.at} ReLU calls without the mesh, "
+                f"{len(rec.masks)} on it")
+        out["relu_flips"].append(rep.flips)
+        wl = float(wm["loss"])
+        out["loss_rel_diff"].append(abs(float(nm["loss"]) - wl)
+                                    / max(1.0, abs(wl)))
+        for err, keep in ((g_err, gnn_rest), (e_err, edge_sums)):
+            grad_reading(err, state["opt"]["m"], new["opt"]["m"],
+                         want["opt"]["m"], keep)
+        del want
+        state = new
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    require(max(out["relu_flips"]) <= RELU_FLIP_LIMIT[shape],
+            f"(j) gatedgcn: {out['relu_flips']} ReLU decisions differ "
+            f"(at most {RELU_FLIP_LIMIT[shape]} a step)")
+    require(max(out["loss_rel_diff"]) <= GNN_LOSS_TOL,
+            f"(j) gatedgcn: losses differ by {out['loss_rel_diff']}")
+    require(all(c.get("all_reduce", 0) > 0 for c in out["collectives"]),
+            f"(j) gatedgcn: the edge-parallel steps exchanged nothing: "
+            f"{out['collectives']}")
+    read = g_err.check("(j) gatedgcn mesh steps' gradient")
+    edge = e_err.check("(j) gatedgcn mesh steps' gradient of the edge sums",
+                       median_tol=GNN_EDGE_SUM_TOL)
+    out.update(grad_max_median=read["max_median"],
+               edge_sums_max_median=edge["max_median"])
+    out["collectives"] = out["collectives"][-1]
+    per = {"plain": [], "mesh": []}
+    for _ in range(GNN_TIME_STEPS):
+        for label in ("plain", "mesh", "mesh", "plain"):
+            with dist.use(ctx) if label == "mesh" else \
+                    contextlib.nullcontext():
+                fn = mesh if label == "mesh" else plain
+                (state, _), ms = synced_ms(lambda: fn(state, batch))
+            per[label].append(ms)
+    out["step_ms"] = {k: statistics.median(v) for k, v in per.items()}
+    out["step_ms_each"] = per
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_gnn_mesh(smi: str) -> dict:
+    """Phase (j): ``j_lm_dense``, ``j_lm_moe`` and ``j_gnn`` on a one-rank
+    NCCL mesh (a new world: phase (h) ended its own)."""
+    import torch.distributed as tdist
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    parts = Parts()
+    out = {"card": smi}
+    ctx = one_rank_mesh(tempfile.mkdtemp())
+    try:
+        # NCCL starts a group's communicator at its first collective: start
+        # them all before any timed call
+        for axes in ("data", "model", ("data", "model")):
+            coll.all_reduce_(torch.zeros(1, device=dev), ctx, axes)
+        with parts("lm_dense"):
+            out["lm_dense"] = j_lm_dense(ctx, dev)
+        print(f"(j) {J_ARCH}: " + json.dumps({k: out["lm_dense"][k] for k in
+                                              ("prefill_logits_max_diff",
+                                               "decode_logits_max_diff")}),
+              flush=True)
+        with parts("lm_moe"):
+            out["lm_moe"] = j_lm_moe(ctx, dev)
+        with parts("gnn"):
+            out["gatedgcn"] = j_gnn(ctx, dev)
+    finally:
+        tdist.destroy_process_group()
+    out["parts_s"] = parts.s
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -4593,6 +4999,13 @@ def main() -> int:
           + json.dumps({k: round(v, 1) for k, v in lmg["parts_s"].items()}))
     lm_runs = lmg["lm_full_depth"]["robe"]
 
+    # (j) the LM and GatedGCN on a one-rank NCCL mesh
+    torch.cuda.empty_cache()
+    lmj = lm_gnn_mesh(smi)
+    print(f"LM and GatedGCN on the mesh ok ({lmj['wall_s']:.1f} s): "
+          + json.dumps({k: round(v, 1) for k, v in lmj["parts_s"].items()}))
+    lmj_launches = lmj["lm_dense"]["launches"]
+
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],
                 "serve_fused": c_fused["serve_fused"],
@@ -4617,6 +5030,8 @@ def main() -> int:
                 "train_step": lm_runs["train"]["launches_per_step"].get(
                     k, 0)}
             row["lm"] = lmg["lm_full_depth"]["kernels"][k]
+            row["launches_lm_mesh"] = {part: lmj_launches[part].get(k, 0)
+                                       for part in lmj_launches}
         if "over_a" in err[k]:            # the scatter's error / A
             row["max_err_over_a"] = err[k]["over_a"]["float32"]
             row["max_err_over_a_bf16"] = err[k]["over_a"]["bfloat16"]
@@ -4632,6 +5047,7 @@ def main() -> int:
     print(json.dumps({"recsys_family": family}))
     print(json.dumps({"mesh": mesh_res}))
     print(json.dumps({"lm_gnn": lmg}))
+    print(json.dumps({"lm_gnn_mesh": lmj}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,8 @@ from repro_torch.dist.api import (DistContext, P, current, default_rules,
                                   gather, place, shard, shard_if_divisible,
                                   use)
 from repro_torch.dist.param_specs import (recsys_specs, replicated_specs,
-                                          state_specs)
+                                          state_specs, transformer_specs)
 
 __all__ = ["DistContext", "P", "current", "default_rules", "gather",
            "place", "shard", "shard_if_divisible", "use", "recsys_specs",
-           "replicated_specs", "state_specs"]
+           "replicated_specs", "state_specs", "transformer_specs"]

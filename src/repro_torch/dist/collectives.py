@@ -9,6 +9,12 @@ module of its own for them).
 * ``reduce_scatter(x, ctx, axes, dim)``: the sum over the ranks along
   ``axes``, each keeping its block of ``dim``; its backward is
   ``all_gather``.
+* ``all_to_all(x, ctx, axes, split_dim, concat_dim)``: ``x`` cut into
+  one block a rank along ``split_dim``, block i sent to the i-th rank
+  along ``axes``, and the blocks received joined along ``concat_dim`` in
+  the ranks' order (``jax.lax.all_to_all(..., tiled=True)``); its
+  backward is the same exchange of the cotangent with the two dims
+  swapped (the same call when they are equal).
 * ``all_reduce(x, ctx, axes)``: the sum over the ranks along ``axes``;
   its backward is ``all_reduce`` of the cotangents.  Every rank
   back-propagates its own share of the loss (``dist.api`` contract point
@@ -73,6 +79,26 @@ def _scatter(x, ctx, axes, dim):
     return out if dim == 0 else out.movedim(0, dim)
 
 
+def _exchange(x, ctx, axes, split_dim, concat_dim):
+    counts["all_to_all"] += 1
+    n = ctx.size(axes)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of size "
+                         f"{x.shape[split_dim]} does not divide {axes} of "
+                         f"size {n}")
+    xs = _front(x, split_dim)
+    out = torch.empty_like(xs)
+    tdist.all_to_all_single(out, xs, group=ctx.group(axes))
+    # out[j] is rank j's block for this rank: [n, S/n, ...rest] with the
+    # split dim back in its place, then the n blocks joined along concat
+    blocks = out.reshape((n, xs.shape[0] // n) + tuple(xs.shape[1:]))
+    if split_dim:
+        blocks = blocks.movedim(1, split_dim + 1)
+    shape = list(blocks.shape[1:])
+    shape[concat_dim] *= n
+    return blocks.movedim(0, concat_dim).reshape(shape)
+
+
 def _reduce(x, ctx, axes, op=tdist.ReduceOp.SUM):
     counts["all_reduce"] += 1
     out = x.contiguous().clone()
@@ -102,6 +128,17 @@ class _ReduceScatter(torch.autograd.Function):
         return (_gather(g, *fctx.args),) + (None,) * 3
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axes, split_dim, concat_dim):
+        fctx.args = (ctx, axes, concat_dim, split_dim)
+        return _exchange(x, ctx, axes, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (_exchange(g, *fctx.args),) + (None,) * 4
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ctx, axes):
@@ -123,6 +160,11 @@ def all_gather(x: torch.Tensor, ctx, axes, dim: int = 0) -> torch.Tensor:
 
 def reduce_scatter(x: torch.Tensor, ctx, axes, dim: int = 0) -> torch.Tensor:
     return _ReduceScatter.apply(x, ctx, _axes(axes), dim)
+
+
+def all_to_all(x: torch.Tensor, ctx, axes, split_dim: int = 0,
+               concat_dim: int = 0) -> torch.Tensor:
+    return _AllToAll.apply(x, ctx, _axes(axes), split_dim, concat_dim)
 
 
 def all_reduce(x: torch.Tensor, ctx, axes) -> torch.Tensor:

@@ -6,12 +6,17 @@
   row-sharded over ``model`` (or the whole mesh with ``placement="2d"``),
   the ROBE array replicated (or ``model``-sharded, ZeRO-3), qrobe, hashed
   and tt replicated.
-* ``replicated_specs`` -- ``P()`` everywhere (pure data parallelism).
+* ``transformer_specs`` -- Megatron tensor parallelism for the LM tree:
+  q/k/v (``wq wk wv w_uq w_uk w_uv`` and their biases) and the FFN's
+  gate/up column-parallel, ``wo`` and the FFN's down row-parallel, the
+  embedding table vocab-row sharded, ``lm_head`` vocab-column sharded,
+  the MoE expert stacks over ``expert`` (shared experts replicated, as
+  ``nn.moe.moe_param_specs``); ``fsdp=True`` also shards each large
+  leaf's largest free dim over the data axes (``_fsdp_extend``).
+* ``replicated_specs`` -- ``P()`` everywhere (pure data parallelism; the
+  GatedGCN).
 * ``state_specs``      -- mirrors a param spec tree onto optimizer state
   (moments shard like their parameters; anything else is replicated).
-
-``transformer_specs`` and its ``_fsdp_extend`` wait for the LM family
-(ROADMAP module item 7): the port has no transformer parameters yet.
 
 The functions take shape trees (tensors, numpy arrays or anything with
 ``shape``/``ndim``); ``None`` leaves (the port's frozen-leaf marker) keep
@@ -22,8 +27,14 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from repro_torch.dist.api import P
+import numpy as np
+
+from repro_torch.dist.api import P, axes_entry, axes_tuple
 from repro_torch.tree import leaves_up_to, tree_map, unflatten
+
+# dense sublayers of the attention blocks, classified Megatron-style
+_COL_W = {"wq", "wk", "wv", "w_uq", "w_uk", "w_uv"}
+_ROW_W = {"wo"}
 
 
 def replicated_specs(pshapes) -> Any:
@@ -53,6 +64,73 @@ def recsys_specs(pshapes, rules: Dict, embedding_spec=None, *,
         out["embedding"] = get_backend(spec.kind).param_specs(spec, rules,
                                                               mesh=mesh)
     return out
+
+
+def _fsdp_extend(spec: P, leaf, dp: tuple, min_size: int = 1 << 20) -> P:
+    """Shard the largest still-replicated dim of a leaf of at least
+    ``min_size`` elements over the data axes ``dp``."""
+    if not dp or int(np.prod(leaf.shape)) < min_size:
+        return spec
+    dims = list(spec) + [None] * (len(leaf.shape) - len(spec))
+    free = [i for i, d in enumerate(dims) if d is None]
+    if not free:
+        return spec
+    i = max(free, key=lambda j: leaf.shape[j])
+    dims[i] = axes_entry(dp)
+    return P(*dims)
+
+
+def _with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def transformer_specs(pshapes, rules: Dict, fsdp: bool = False) -> Any:
+    """Megatron-TP specs for the LM parameter tree (the scanned
+    ``layers`` carry a leading L dim, the unrolled ``dense_layers`` do
+    not)."""
+    mlp = axes_entry(axes_tuple(rules.get("mlp", "model")) or ("model",))
+    vocab = axes_entry(axes_tuple(rules.get("vocab", "model")) or ("model",))
+    ex = axes_entry(axes_tuple(rules.get("expert", "model")) or ("model",))
+    dp = axes_tuple(rules.get("batch"))
+
+    def leaf_spec(keys, leaf):
+        if leaf is None:
+            return None
+        nd = len(leaf.shape)
+        off = 1 if ("layers" in keys and "dense_layers" not in keys) else 0
+        dims = [None] * nd
+        name = keys[-1] if keys else ""
+        parent = keys[-2] if len(keys) >= 2 else ""
+        if "embed" in keys:
+            if name == "table" and nd >= 1:
+                dims[0] = vocab                       # vocab-row sharded
+        elif name == "lm_head" and nd >= 1:
+            dims[nd - 1] = vocab
+        elif "moe" in keys and "shared" not in keys:
+            if name in ("w_gate", "w_up", "w_down") and off < nd:
+                dims[off] = ex                        # [.., E, d, f]
+        elif "ffn" in keys:
+            if name in ("w_gate", "w_up") and nd >= 1:
+                dims[nd - 1] = mlp                    # column-parallel
+            elif name == "w_down" and off < nd:
+                dims[off] = mlp                       # row-parallel
+        elif "attn" in keys:
+            if name in ("w", "b") and parent in _COL_W and nd >= 1:
+                dims[nd - 1] = mlp
+            elif name == "w" and parent in _ROW_W and off < nd:
+                dims[off] = mlp
+        spec = P(*dims)
+        if fsdp:
+            spec = _fsdp_extend(spec, leaf, dp)
+        return spec
+
+    return _with_path(leaf_spec, pshapes)
 
 
 def state_specs(pspecs, opt_state) -> Any:

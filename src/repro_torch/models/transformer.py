@@ -14,28 +14,63 @@ sake and changes nothing here.
 
 On the card the ROBE token embedding runs in the Hopper kernels of
 ``kernels/ops.py`` (``robe_lookup`` and its backward), every token one
-item of one field; everything else is plain PyTorch.  Under an active
-``repro_torch.dist`` context every entry point raises: the sharded LM
-(tensor, expert and sequence parallelism) is ROADMAP item 7b.
+item of one field; everything else is plain PyTorch.
+
+Under an active ``repro_torch.dist`` context the entry points keep the
+JAX package's global view (``dist.api`` contract point 1): the global
+[B, T] batch in, the global logits and mean loss out, shards inside,
+laid out as GSPMD lays out ``transformer_specs`` there, with the
+collectives explicit (``dist.tp``):
+
+* rows over the data axes; between blocks the activations cut along T
+  over ``model`` when T divides it (sequence parallelism), all-gathered
+  into each block and reduce-scattered out of its row-parallel output
+  (all-reduced without the cut);
+* attention head-parallel (``nn.attention``), the dense FFN column- then
+  row-parallel, ``moe_dispatch="ep"`` the expert-parallel all_to_all
+  dispatch (tokens over (data, model) with the cut, else over data; the
+  aux loss averaged over those axes), the dense MoE dispatch over the
+  rank's experts with the aux loss's statistics summed over the data axes;
+* the ``full`` embedding a masked lookup of the rank's vocabulary rows
+  reduced into the layout, ``robe`` the kernels' lookup of the rank's
+  tokens on the whole array; ``lm_head`` vocabulary-parallel and
+  ``cross_entropy`` too (all-reduced max, sum of exponentials and gold
+  logit, the padded columns masked by global index);
+* the decode caches cut along the sequence (``init_cache``), the prefill's
+  keys and values handed back on the same cut (``fill_cache`` copies them
+  into a longer cache).
+
+Parameters are held as the rank's shards by the live spec tree
+(``dist.placed``, which the train step sets from its ``specs=``), or
+whole on every rank outside ``placed``; each layer takes the views its
+computation needs (``Tp.view``: ``fsdp`` leaves all-gathered over the
+data axes at use, whose transpose is a reduce-scatter).  Gradients are
+those of the rank's own share of the loss; ``train.train_loop`` applies
+the gradient rule.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.robe import RobeSpec, init_memory
+from repro_torch.device import resolve_device
 from repro_torch.dist import api as dist
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.api import P, axes_tuple
+from repro_torch.dist.tp import Tp
 from repro_torch.kernels import ops
-from repro_torch.nn.attention import (AttnConfig, attention_apply,
-                                      attention_init)
+from repro_torch.nn.attention import (AttnConfig, _heads_tp, _q8,
+                                      attention_apply, attention_init)
 from repro_torch.nn.attention import init_cache as attn_init_cache
 from repro_torch.nn.core import normal_init, rms_norm_apply, rms_norm_init
-from repro_torch.nn.moe import MoeConfig, moe_apply_dense, moe_init
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.nn.moe import (MoeConfig, _router, _shared_out,
+                                moe_apply_dense, moe_apply_ep, moe_init)
+from repro_torch.tree import leaves, leaves_up_to, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +100,7 @@ class TransformerConfig:
     n_shared: int = 0
     first_k_dense: int = 0
     d_ff_dense: int = 0              # hidden of the unrolled dense layers
-    moe_dispatch: str = "dense"      # "ep" runs dense on one device
+    moe_dispatch: str = "dense"      # "ep": dense on one device
     capacity_factor: float = 1.25
     # embedding compression (the paper's technique)
     embedding: str = "full"          # "full" | "robe"
@@ -149,13 +184,6 @@ class TransformerConfig:
         return attn + act_ffn + 2 * self.vocab * d
 
 
-def _no_mesh(what: str) -> None:
-    if dist.current() is not None:
-        raise NotImplementedError(
-            f"transformer.{what} under a mesh: the sharded LM (tensor, "
-            f"expert and sequence parallelism) is ROADMAP item 7b")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -166,10 +194,21 @@ def _dense_ffn_init(generator, d: int, f: int, device) -> dict:
             "w_down": normal_init(generator, (f, d), device, 0.02)}
 
 
-def _dense_ffn_apply(p, x):
+def _dense_ffn_apply(p, x, tp=None, cut: bool = False):
+    """The SwiGLU FFN.  With ``tp``: x in the layout between blocks and
+    the output back in it; ``cut``: ``p`` holds the rank's columns of
+    gate/up and rows of down (the output a partial sum)."""
+    if tp is not None:
+        x = tp.seq_in(x)
     h = torch.nn.functional.silu(x @ p["w_gate"].to(x.dtype)) \
         * (x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+    y = h @ p["w_down"].to(x.dtype)
+    return y if tp is None else tp.seq_out(y, cut)
+
+
+def _ffn_width(cfg: TransformerConfig) -> int:
+    """The dense FFN's hidden width (a MoE config's dense layers')."""
+    return cfg.d_ff_dense if (cfg.is_moe and cfg.d_ff_dense) else cfg.d_ff
 
 
 def _layer_init(generator, cfg: TransformerConfig, moe: bool,
@@ -180,8 +219,8 @@ def _layer_init(generator, cfg: TransformerConfig, moe: bool,
     if moe:
         p["moe"] = moe_init(generator, cfg.moe_cfg(), device)
     else:
-        f = cfg.d_ff_dense if (cfg.is_moe and cfg.d_ff_dense) else cfg.d_ff
-        p["ffn"] = _dense_ffn_init(generator, cfg.d_model, f, device)
+        p["ffn"] = _dense_ffn_init(generator, cfg.d_model, _ffn_width(cfg),
+                                   device)
     return p
 
 
@@ -229,12 +268,89 @@ def layer_params(params: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# the layout on a mesh: each leaf's compute view
+# ---------------------------------------------------------------------------
+
+_COL = {"wq", "w_uq", "w_uk", "w_uv"}
+
+
+def _want(path: tuple, ndim: int, cfg: TransformerConfig, tp: Tp):
+    """The block of a leaf the computation takes (None: whole): ``path``
+    its keys within a layer, or from the top for the embedding and the
+    head.  Heads, hidden widths, experts and the vocabulary are cut over
+    the model axes where they divide them."""
+    ax = tp.axes
+    last, first = P(*((None,) * (ndim - 1) + (ax,))), P(ax)
+    name = path[-1]
+    parent = path[-2] if len(path) > 1 else ""
+    if path[0] == "attn":
+        heads, kv = _heads_tp(cfg.attn_cfg(), tp)
+        if parent in ("wk", "wv"):
+            return last if kv else None
+        if parent in _COL:
+            return last if heads else None
+        if parent == "wo" and name == "w":
+            return first if heads else None
+        return None
+    if path[0] == "ffn":
+        if not tp.splits(_ffn_width(cfg)):
+            return None
+        return last if name in ("w_gate", "w_up") else first
+    if path[0] == "moe":
+        if name in ("w_gate", "w_up", "w_down") and "shared" not in path \
+                and tp.splits(cfg.n_experts):
+            return first
+        return None
+    if path == ("embed", "table"):
+        return first if tp.splits(cfg.vocab_padded) else None
+    if path == ("lm_head",):
+        return last if tp.splits(cfg.vocab_padded) else None
+    return None
+
+
+def _views(tree, specs, tp: Tp, cfg: TransformerConfig, path=()):
+    """``tree``'s leaves as the computation takes them (``Tp.view``) from
+    the shards ``specs`` names (None: whole)."""
+    if isinstance(tree, dict):
+        return {k: _views(v, None if specs is None else specs[k], tp, cfg,
+                          path + (k,)) for k, v in tree.items()}
+    return tp.view(tree, specs, _want(path, tree.dim(), cfg, tp))
+
+
+def _stacked(params: dict, specs, tp: Tp):
+    """The scanned layers' leaves and one layer's specs (the stack's
+    leading entry dropped); a leaf cut along L itself is gathered first."""
+    stacked = params["layers"]
+    if specs is None:
+        return stacked, None
+    ws, ss = [], []
+    for w, s in zip(leaves(stacked), leaves_up_to(stacked, specs["layers"])):
+        if s is not None and len(s) and s[0] is not None:
+            w = coll.all_gather(w, tp.ctx, axes_tuple(s[0]), dim=0)
+        ws.append(w)
+        ss.append(None if s is None else P(*tuple(s)[1:]))
+    return unflatten(stacked, ws), unflatten(stacked, ss)
+
+
+def _plan(t: int) -> Optional[Tp]:
+    ctx = dist.current()
+    return None if ctx is None else Tp.of(ctx, t)
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: TransformerConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: TransformerConfig, tokens: torch.Tensor,
+           tp: Optional[Tp] = None, specs=None) -> torch.Tensor:
+    """tokens [b, T] (the rank's rows) -> [b, T, d], or with ``tp`` the
+    layout between blocks."""
+    if tp is not None:
+        params = {"embed": _views(params["embed"], None if specs is None
+                                  else specs["embed"], tp, cfg, ("embed",))}
     if cfg.embedding == "robe":
+        if tp is not None and tp.sp:
+            tokens = tp.block(tokens, 1)       # the rank's tokens
         # every token one item of one field (table 0): the backward's
         # buckets stay one field wide
         b, t = tokens.shape
@@ -242,29 +358,77 @@ def _embed(params, cfg: TransformerConfig,
         x = ops.robe_lookup(params["embed"]["memory"], rows, (0,),
                             cfg.d_model, cfg.robe_spec())
         return x.reshape(b, t, cfg.d_model).to(cfg.compute_dtype)
-    x = params["embed"]["table"][tokens.long()]
-    return x.to(cfg.compute_dtype)
+    table = params["embed"]["table"]
+    if tp is None or not tp.splits(cfg.vocab_padded):
+        x = table[tokens.long()].to(cfg.compute_dtype)
+        return x if tp is None else tp.seq_out(x, False)
+    # the rank's vocabulary rows: a masked lookup, reduced into the layout
+    rows = table.shape[0]
+    local = tokens.long() - tp.index * rows
+    hit = (local >= 0) & (local < rows)
+    part = table[local.clamp(0, rows - 1)].to(cfg.compute_dtype)
+    part = torch.where(hit[..., None], part,
+                       torch.zeros((), dtype=part.dtype, device=part.device))
+    return tp.seq_out(part, True)
 
 
-def _moe_block(p, cfg: TransformerConfig, x: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B,T,d] -> (y, aux); one device: the dense dispatch."""
+def _moe_block(p, cfg: TransformerConfig, x: torch.Tensor,
+               tp: Optional[Tp] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,T,d] -> (y, aux); with ``tp``, x and y in the layout between
+    blocks and ``p`` the rank's views."""
     b, t, d = x.shape
-    y, aux = moe_apply_dense(p, cfg.moe_cfg(), x.reshape(b * t, d))
-    return y.reshape(b, t, d), aux
+    mcfg = cfg.moe_cfg()
+    if tp is None:
+        y, aux = moe_apply_dense(p, mcfg, x.reshape(b * t, d))
+        return y.reshape(b, t, d), aux
+    if mcfg.dispatch == "ep":
+        # the rank's tokens: over (data, model) with the sequence cut, else
+        # over data (every model rank dispatches the same ones)
+        aux_axes = tp.dp + (tp.axes if tp.sp else ())
+        y, aux = moe_apply_ep(p, mcfg, x.reshape(b * t, d), tp.ctx,
+                              tp.axes, aux_axes)
+        return y.reshape(b, t, d), aux
+    # dense dispatch: every token through the rank's experts, the partial
+    # combine reduced into the layout; the shared experts on the rank's
+    # own tokens, after the reduction
+    xa = tp.seq_in(x)
+    n = xa.shape[0] * xa.shape[1]
+    flat = xa.reshape(n, d)
+    gates, idx, aux = _router(p, mcfg, flat, tp.ctx, tp.dp)
+    h = torch.einsum("nd,edf->enf", flat, p["w_gate"].to(x.dtype))
+    u = torch.einsum("nd,edf->enf", flat, p["w_up"].to(x.dtype))
+    y_e = torch.einsum("enf,efd->end", torch.nn.functional.silu(h) * u,
+                       p["w_down"].to(x.dtype))
+    combine = torch.zeros((n, mcfg.n_experts), dtype=x.dtype,
+                          device=x.device).scatter_add(1, idx, gates)
+    cut = tp.splits(mcfg.n_experts)
+    if cut:
+        combine = tp.block(combine, 1)
+    y = torch.einsum("ne,end->nd", combine, y_e).reshape(xa.shape)
+    return tp.seq_out(y, cut) + _shared_out(p, x), aux
 
 
 def _layer_apply(p, cfg: TransformerConfig, moe: bool, x, positions,
-                 collect_kv: bool = False):
-    h, kv = attention_apply(p["attn"], cfg.attn_cfg(),
-                            rms_norm_apply(p["attn_norm"], x), positions,
-                            return_kv=collect_kv)
+                 collect_kv: bool = False, tp: Optional[Tp] = None,
+                 cache=None, kv_len=None):
+    """One block: (x, aux, the prefill's kv or the decode cache).  With
+    ``tp`` x is in the layout between blocks and ``p`` the rank's
+    views."""
+    h = rms_norm_apply(p["attn_norm"], x)
+    if tp is not None:
+        h = tp.seq_in(h)
+    h, kv = attention_apply(p["attn"], cfg.attn_cfg(), h, positions,
+                            cache=cache, kv_len=kv_len,
+                            return_kv=collect_kv, tp=tp)
+    if tp is not None:
+        h = tp.seq_out(h, _heads_tp(cfg.attn_cfg(), tp)[0])
     x = x + h
     hin = rms_norm_apply(p["ffn_norm"], x)
     if moe:
-        h, aux = _moe_block(p["moe"], cfg, hin)
+        h, aux = _moe_block(p["moe"], cfg, hin, tp)
     else:
-        h = _dense_ffn_apply(p["ffn"], hin)
+        h = _dense_ffn_apply(p["ffn"], hin, tp, tp is not None and
+                             tp.splits(_ffn_width(cfg)))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, aux, kv
 
@@ -275,72 +439,156 @@ def _stack_kv(kvs: list):
     return {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
 
 
+def _shard_kv(kv, tp: Optional[Tp]):
+    """A prefill's keys and values [b, T, ...] on the decode caches' cut:
+    the rank's block of the sequence when T divides the model axes."""
+    if kv is None or tp is None or not tp.sp:
+        return kv
+    return {k: tp.block(v, 1) for k, v in kv.items()}
+
+
+def _trunk(params, cfg: TransformerConfig, tokens: torch.Tensor,
+           collect_cache: bool, tp: Optional[Tp]):
+    """The embedding and the layers of the rank's rows of ``tokens``: (x
+    after the final norm -- with ``tp`` in the layout between blocks --,
+    the aux loss, the prefill's kv or None)."""
+    specs = None if tp is None else dist.live_specs()
+    if tp is not None:
+        tokens = tp.rows(tokens)
+    x = _embed(params, cfg, tokens, tp, specs)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    dense_kv = []
+    for i, p in enumerate(params.get("dense_layers", [])):
+        if tp is not None:
+            p = _views(p, None if specs is None else
+                       specs["dense_layers"][i], tp, cfg)
+        x, aux, kv = _layer_apply(p, cfg, False, x, positions,
+                                  collect_cache, tp)
+        aux_total = aux_total + aux
+        dense_kv.append(_shard_kv(kv, tp))
+
+    stacked, lspec = (params["layers"], None) if tp is None else \
+        _stacked(params, specs, tp)
+
+    def body(layer_p, xx):
+        if tp is not None:
+            layer_p = _views(layer_p, lspec, tp, cfg)
+        return _layer_apply(layer_p, cfg, cfg.is_moe, xx, positions,
+                            collect_cache, tp)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    kvs = []
+    for layer_p in layer_params({"layers": stacked}):
+        if remat:
+            x, aux, kv = checkpoint(body, layer_p, x, use_reentrant=False)
+        else:
+            x, aux, kv = body(layer_p, x)
+        aux_total = aux_total + aux
+        kvs.append(_shard_kv(kv, tp))
+    x = rms_norm_apply(params["final_norm"], x)
+    cache = None
+    if collect_cache:
+        cache = {"layers": _stack_kv(kvs)}
+        if dense_kv:
+            cache["dense_layers"] = dense_kv
+    return x, aux_total, cache
+
+
+def _head(params, cfg: TransformerConfig, x: torch.Tensor, last: bool,
+          tp: Optional[Tp]) -> torch.Tensor:
+    """The logits of x (the last position's with ``last``); with ``tp``
+    the rank's vocabulary columns of its rows."""
+    w = params["lm_head"]
+    if tp is not None:
+        specs = dist.live_specs()
+        w = tp.view(w, None if specs is None else specs["lm_head"],
+                    _want(("lm_head",), w.dim(), cfg, tp))
+        x = tp.seq_in(x)
+    if last:
+        x = x[:, -1]
+    return x @ w.to(x.dtype)
+
+
+def _gather_logits(logits: torch.Tensor, cfg: TransformerConfig,
+                   tp: Optional[Tp], n: int) -> torch.Tensor:
+    """The global logits from every rank's vocabulary columns of its
+    rows."""
+    if tp is None:
+        return logits
+    if tp.splits(cfg.vocab_padded):
+        logits = tp.gather(logits, logits.dim() - 1)
+    return tp.gather_rows(logits, n)
+
+
 def forward(params, cfg: TransformerConfig, tokens: torch.Tensor,
             collect_cache: bool = False, logits_mode: str = "all"):
     """tokens [B,T] -> (logits, aux[, cache]).
 
     logits_mode: "all" ([B,T,V], training) | "last" ([B,V], prefill
     serving).  ``collect_cache``: also the prefill's keys and values,
-    {"layers": stacked [L, B, T, ...], "dense_layers": [...]}."""
-    _no_mesh("forward")
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    dense_kv = []
-    for p in params.get("dense_layers", []):
-        x, aux, kv = _layer_apply(p, cfg, False, x, positions, collect_cache)
-        aux_total = aux_total + aux
-        dense_kv.append(kv)
-
-    def body(layer_p, xx):
-        return _layer_apply(layer_p, cfg, cfg.is_moe, xx, positions,
-                            collect_cache)
-
-    remat = cfg.remat and torch.is_grad_enabled()
-    kvs = []
-    for layer_p in layer_params(params):
-        if remat:
-            x, aux, kv = checkpoint(body, layer_p, x, use_reentrant=False)
-        else:
-            x, aux, kv = body(layer_p, x)
-        aux_total = aux_total + aux
-        kvs.append(kv)
-    x = rms_norm_apply(params["final_norm"], x)
-    if logits_mode == "last":
-        x = x[:, -1]
-    logits = x @ params["lm_head"].to(x.dtype)
+    {"layers": stacked [L, B, T, ...], "dense_layers": [...]} (under a
+    mesh the rank's rows and, when T divides the model axes, its block of
+    the sequence: the decode caches' cut)."""
+    tp = _plan(tokens.shape[1])
+    x, aux_total, cache = _trunk(params, cfg, tokens, collect_cache, tp)
+    logits = _gather_logits(_head(params, cfg, x, logits_mode == "last",
+                                  tp), cfg, tp, tokens.shape[0])
     if collect_cache:
-        cache = {"layers": _stack_kv(kvs)}
-        if dense_kv:
-            cache["dense_layers"] = dense_kv
         return logits, aux_total, cache
     return logits, aux_total
 
 
 def cross_entropy(cfg: TransformerConfig, logits: torch.Tensor,
-                  labels: torch.Tensor) -> torch.Tensor:
+                  labels: torch.Tensor, tp: Optional[Tp] = None
+                  ) -> torch.Tensor:
     """Mean next-token cross entropy of ``logits`` [..., V].  The logits
     stay in the compute dtype (the padded vocabulary masked to -1e30);
-    only the max-shifted exp and sum run in f32."""
+    only the max-shifted exp and sum run in f32.  With ``tp`` and a
+    vocabulary cut over the model axes, ``logits`` are the rank's columns
+    and the max (no gradient), the sum of exponentials and the gold logit
+    are all-reduced over them."""
+    cut = tp is not None and tp.splits(cfg.vocab_padded)
     lg = logits
+    col0 = tp.index * lg.shape[-1] if cut else 0
     if cfg.vocab_padded != cfg.vocab:
-        real = torch.arange(lg.shape[-1], device=lg.device) < cfg.vocab
+        real = torch.arange(col0, col0 + lg.shape[-1],
+                            device=lg.device) < cfg.vocab
         lg = torch.where(real, lg, torch.tensor(-1e30, dtype=lg.dtype,
                                                 device=lg.device))
     m = lg.detach().amax(dim=-1, keepdim=True).to(torch.float32)
+    if cut:
+        m = coll.all_reduce_(m.contiguous(), tp.ctx, tp.axes, "max")
     ex = torch.exp(lg.to(torch.float32) - m)
-    lse = torch.log(torch.sum(ex, dim=-1)) + m[..., 0]
-    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
-    return (lse - gold.to(torch.float32)).mean()
+    se = torch.sum(ex, dim=-1)
+    local = labels.long() - col0
+    gold = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None]
+                        )[..., 0].to(torch.float32)
+    if cut:
+        hit = (local >= 0) & (local < lg.shape[-1])
+        gold = torch.where(hit, gold, torch.zeros((), dtype=gold.dtype,
+                                                  device=gold.device))
+        se = coll.all_reduce(se, tp.ctx, tp.axes)
+        gold = coll.all_reduce(gold, tp.ctx, tp.axes)
+    lse = torch.log(se) + m[..., 0]
+    return (lse - gold).mean()
 
 
 def loss_fn(params, cfg: TransformerConfig, batch: dict
             ) -> Tuple[torch.Tensor, dict]:
     """``cross_entropy`` of the forward's logits + 0.001 · the MoE aux
-    loss."""
-    _no_mesh("loss_fn")
-    logits, aux = forward(params, cfg, batch["tokens"])
-    ce = cross_entropy(cfg, logits, batch["labels"])
+    loss.  Under a mesh the value is the global mean; the gradient is
+    that of the rank's own share (the mean over its rows, the same on
+    every model rank)."""
+    tokens = batch["tokens"]
+    tp = _plan(tokens.shape[1])
+    x, aux, _ = _trunk(params, cfg, tokens, False, tp)
+    logits = _head(params, cfg, x, False, tp)
+    if tp is None:
+        ce = cross_entropy(cfg, logits, batch["labels"])
+    else:
+        ce = tp.mean(cross_entropy(cfg, logits, tp.rows(batch["labels"]),
+                                   tp), tokens.shape[0])
     return ce + 0.001 * aux, {"ce": ce, "aux": aux}
 
 
@@ -351,7 +599,21 @@ def loss_fn(params, cfg: TransformerConfig, batch: dict
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Zeroed decode caches in ``cfg.cache_dtype``: the scanned layers'
-    stacked [L, B, max_len, ...], the dense layers' a list."""
+    stacked [L, B, max_len, ...], the dense layers' a list, on ``device``
+    (default ``cuda``: raises without a card; under a mesh, the mesh's).
+    Under a mesh the rank's shard: its rows of the batch and its block of
+    ``max_len / M`` positions (``seq_kv_model``)."""
+    ctx = dist.current()
+    if ctx is None:
+        device = resolve_device(device)
+    else:
+        device = ctx.device if device is None else torch.device(device)
+        tp = Tp.of(ctx, 1)
+        if max_len % tp.size:
+            raise ValueError(f"init_cache: {max_len} slots do not cut over "
+                             f"the model axes' {tp.size} ranks")
+        batch, max_len = tp.n_rows(batch), max_len // tp.size
+
     def one(lead=()):
         c = attn_init_cache(cfg.attn_cfg(), 1, 1, cfg.cache_dtype, "meta")
         return {k: torch.zeros(lead + (batch, max_len) + tuple(v.shape[2:]),
@@ -364,39 +626,71 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     return caches
 
 
-def _layer_decode(p, cfg: TransformerConfig, moe: bool, x, cache, pos: int,
-                  kv_len):
-    positions = torch.full((x.shape[1],), pos, dtype=torch.int32,
-                           device=x.device)
-    h, cache = attention_apply(p["attn"], cfg.attn_cfg(),
-                               rms_norm_apply(p["attn_norm"], x), positions,
-                               cache=cache, kv_len=kv_len)
-    x = x + h
-    hin = rms_norm_apply(p["ffn_norm"], x)
-    if moe:
-        h, _ = _moe_block(p["moe"], cfg, hin)
-    else:
-        h = _dense_ffn_apply(p["ffn"], hin)
-    return x + h, cache
+def fill_cache(cfg: TransformerConfig, caches: dict, pre: dict,
+               t: int) -> dict:
+    """Write a prefill's keys and values (``forward(...,
+    collect_cache=True)`` of ``t`` tokens: positions 0..t-1) into decode
+    caches from ``init_cache``, in place; an int8 cache takes them
+    quantized as a decode step writes them.  Under a mesh both are the
+    rank's shards: the prefill's sequence blocks are gathered over the
+    model axes and each rank keeps the positions of its cache block."""
+    tp = _plan(t)
+
+    def one(cache: dict, kv: dict, seq: int) -> None:
+        kv = dict(kv)
+        if tp is not None and tp.sp:
+            with torch.no_grad():
+                kv = {k: tp.gather(v, seq) for k, v in kv.items()}
+        if "k_scale" in cache:
+            kv["k"], kv["k_scale"] = _q8(kv["k"].to(torch.float32))
+            kv["v"], kv["v_scale"] = _q8(kv["v"].to(torch.float32))
+        for k, buf in cache.items():
+            s = buf.shape[seq]
+            off = 0 if tp is None else tp.index * s
+            n = min(t, off + s) - off
+            if n > 0:
+                buf.narrow(seq, 0, n).copy_(kv[k].narrow(seq, off, n))
+
+    one(caches["layers"], pre["layers"], 2)
+    for c, kv in zip(caches.get("dense_layers", []),
+                     pre.get("dense_layers", [])):
+        one(c, kv, 1)
+    return caches
 
 
 def decode_step(params, cfg: TransformerConfig, caches, tokens: torch.Tensor,
                 pos) -> Tuple[torch.Tensor, Any]:
     """One decode step: tokens [B,1] at position ``pos`` with a cache filled
     up to ``pos``.  Writes the step's keys and values into ``caches`` at
-    ``pos`` (in place) and returns (logits [B,V], caches)."""
-    _no_mesh("decode_step")
+    ``pos`` (in place) and returns (logits [B,V], caches).  Under a mesh
+    the caches are the rank's shards (``init_cache``) and the logits
+    global."""
     pos = int(pos)
-    b = tokens.shape[0]
-    x = _embed(params, cfg, tokens)
-    kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
-    for p, c in zip(params.get("dense_layers", []),
-                    caches.get("dense_layers", [])):
-        x, _ = _layer_decode(p, cfg, False, x, c, pos, kv_len)
-    for i, layer_p in enumerate(layer_params(params)):
+    n = tokens.shape[0]
+    tp = _plan(tokens.shape[1])
+    specs = None if tp is None else dist.live_specs()
+    if tp is not None:
+        tokens = tp.rows(tokens)
+    x = _embed(params, cfg, tokens, tp, specs)
+    kv_len = torch.full((tokens.shape[0],), pos + 1, dtype=torch.int32,
+                        device=x.device)
+    positions = torch.full((tokens.shape[1],), pos, dtype=torch.int32,
+                           device=x.device)
+    for i, (p, c) in enumerate(zip(params.get("dense_layers", []),
+                                   caches.get("dense_layers", []))):
+        if tp is not None:
+            p = _views(p, None if specs is None else
+                       specs["dense_layers"][i], tp, cfg)
+        x, _, _ = _layer_apply(p, cfg, False, x, positions, tp=tp, cache=c,
+                               kv_len=kv_len)
+    stacked, lspec = (params["layers"], None) if tp is None else \
+        _stacked(params, specs, tp)
+    for i, layer_p in enumerate(layer_params({"layers": stacked})):
+        if tp is not None:
+            layer_p = _views(layer_p, lspec, tp, cfg)
         layer_c = {k: v[i] for k, v in caches["layers"].items()}
-        x, _ = _layer_decode(layer_p, cfg, cfg.is_moe, x, layer_c, pos,
-                             kv_len)
+        x, _, _ = _layer_apply(layer_p, cfg, cfg.is_moe, x, positions, tp=tp,
+                               cache=layer_c, kv_len=kv_len)
     x = rms_norm_apply(params["final_norm"], x)
-    logits = x[:, -1] @ params["lm_head"].to(x.dtype)
+    logits = _gather_logits(_head(params, cfg, x, True, tp), cfg, tp, n)
     return logits, caches

@@ -10,6 +10,19 @@ PyTorch: einsum -> f32 softmax -> einsum, as the JAX package computes it.
 A decode step writes the new keys and values into the cache tensors in
 place (the JAX package returns updated copies) and returns the same cache
 dict.
+
+With ``tp`` (a ``dist.tp.Tp``, under a mesh) the block is head-parallel:
+``p`` holds the compute views of the rank's heads (q, k, v and MLA's
+up-projections column-cut, ``wo`` row-cut; ``models.transformer`` makes
+them) and the output is the rank's partial sum of ``wo``, which the
+caller reduces.  When the kv heads do not cut with the q heads, ``wk``
+and ``wv`` come whole and each rank takes the kv heads its q heads read.
+The decode cache is cut along the sequence instead (``seq_kv_model``):
+each rank holds ``S / M`` positions of every head, attends them for all
+heads (the queries gathered over the model axes), and the partial
+softmaxes are merged by log-sum-exp over the model axes; the rank that
+holds ``pos`` writes the new keys and values (an int8 cache's scales on
+the same cut).
 """
 
 from __future__ import annotations
@@ -19,6 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.nn.core import (dense_apply, dense_init, rms_norm_apply,
                                  rms_norm_init)
 
@@ -118,14 +133,51 @@ def _pos0(positions: torch.Tensor) -> int:
     return int(positions[0] if positions.dim() else positions)
 
 
-def _write(buf: torch.Tensor, val: torch.Tensor, pos0: int) -> None:
+def _write(buf: torch.Tensor, val: torch.Tensor, pos0: int,
+           tp=None) -> None:
     """The cache's ``dynamic_update_slice`` at ``pos0`` along dim 1, in
-    place."""
-    t = val.shape[1]
-    if pos0 < 0 or pos0 + t > buf.shape[1]:
+    place.  With ``tp`` ``buf`` is the rank's block of a sequence-cut
+    cache, positions ``index·S .. index·S + S - 1`` of ``M·S``: the
+    positions of ``val`` outside it are other ranks'."""
+    t, s = val.shape[1], buf.shape[1]
+    n, off = (1, 0) if tp is None else (tp.size, tp.index * s)
+    if pos0 < 0 or pos0 + t > n * s:
         raise ValueError(f"cache write at {pos0}..{pos0 + t} outside its "
-                         f"{buf.shape[1]} slots")
-    buf[:, pos0:pos0 + t] = val.to(buf.dtype)
+                         f"{n * s} slots")
+    lo, hi = max(pos0, off), min(pos0 + t, off + s)
+    if lo < hi:
+        buf[:, lo - off:hi - off] = val[:, lo - pos0:hi - pos0].to(buf.dtype)
+
+
+def _slot_mask(s: torch.Tensor, kv_len: torch.Tensor, tp) -> torch.Tensor:
+    """Scores [b, ..., S] of the rank's cache block with the slots at or
+    past ``kv_len`` (global positions) set to NEG_INF."""
+    sk = s.shape[-1]
+    slot = tp.index * sk + torch.arange(sk, device=s.device)
+    valid = slot[None, :] < kv_len[:, None]
+    valid = valid.reshape(valid.shape[:1] + (1,) * (s.dim() - 2)
+                          + valid.shape[1:])
+    return torch.where(valid, s, torch.tensor(NEG_INF, dtype=s.dtype,
+                                              device=s.device))
+
+
+def _merged_softmax(s: torch.Tensor, tp) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """The exponentials of the scores [..., S] against the largest score
+    of every rank's block, and their sum over every rank's block [..., 1]
+    (f32): a softmax over the whole cut sequence is e / l."""
+    m = coll.all_reduce_(s.detach().amax(-1, keepdim=True).contiguous(),
+                         tp.ctx, tp.axes, "max")
+    e = torch.exp(s - m)
+    return e, coll.all_reduce(e.sum(-1, keepdim=True), tp.ctx, tp.axes)
+
+
+def _heads_tp(cfg: AttnConfig, tp) -> Tuple[bool, bool]:
+    """(q heads cut over the model axes, kv heads cut with them)."""
+    if tp is None:
+        return False, False
+    heads = tp.splits(cfg.n_heads)
+    return heads, heads and tp.splits(cfg.n_kv_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -159,16 +211,22 @@ def _q8(val: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def gqa_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
               positions: torch.Tensor, cache: Optional[dict] = None,
               kv_len: Optional[torch.Tensor] = None,
-              return_kv: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+              return_kv: bool = False,
+              tp=None) -> Tuple[torch.Tensor, Optional[dict]]:
     """x [B,T,D].  ``cache`` = {"k", "v"} [B,S,Kv,hd] (+ "k_scale",
     "v_scale" [B,S,Kv] for an int8 cache): decode; the new keys and values
     are written at ``positions[0]``.  ``return_kv`` (prefill): also return
-    the sequence's {"k", "v"}."""
+    the sequence's {"k", "v"} (every kv head).  ``tp``: head-parallel on a
+    mesh (the module's docstring); the result is then the rank's partial
+    sum."""
     b, t, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = dense_apply(p["wq"], x).reshape(b, t, nh, hd)
-    k = dense_apply(p["wk"], x).reshape(b, t, nkv, hd)
-    v = dense_apply(p["wv"], x).reshape(b, t, nkv, hd)
+    heads, kv_cut = _heads_tp(cfg, tp)
+    nh_l = nh // tp.size if heads else nh
+    nkv_l = nkv // tp.size if kv_cut else nkv
+    q = dense_apply(p["wq"], x).reshape(b, t, nh_l, hd)
+    k = dense_apply(p["wk"], x).reshape(b, t, nkv_l, hd)
+    v = dense_apply(p["wv"], x).reshape(b, t, nkv_l, hd)
     if cfg.qk_norm:
         q = rms_norm_apply(p["q_norm"], q)
         k = rms_norm_apply(p["k_norm"], k)
@@ -178,30 +236,66 @@ def gqa_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
 
     if cache is not None:
         pos0 = _pos0(positions)
+        if tp is not None:                       # every kv head, all q
+            if kv_cut:
+                k, v = tp.gather(k, 2), tp.gather(v, 2)
+            if heads:
+                q = tp.gather(q, 2)
         if "k_scale" in cache:
             qk, sk = _q8(k.to(torch.float32))
             qv, sv = _q8(v.to(torch.float32))
-            _write(cache["k"], qk, pos0)
-            _write(cache["v"], qv, pos0)
-            _write(cache["k_scale"], sk, pos0)
-            _write(cache["v_scale"], sv, pos0)
+            _write(cache["k"], qk, pos0, tp)
+            _write(cache["v"], qv, pos0, tp)
+            _write(cache["k_scale"], sk, pos0, tp)
+            _write(cache["v_scale"], sv, pos0, tp)
             kf = (cache["k"].to(x.dtype)
                   * cache["k_scale"][..., None].to(x.dtype))
             vf = (cache["v"].to(x.dtype)
                   * cache["v_scale"][..., None].to(x.dtype))
         else:
-            _write(cache["k"], k, pos0)
-            _write(cache["v"], v, pos0)
+            _write(cache["k"], k, pos0, tp)
+            _write(cache["v"], v, pos0, tp)
             kf = cache["k"].to(x.dtype)
             vf = cache["v"].to(x.dtype)
-        out = chunked_attention(q, kf, vf, nkv, 0, causal=False,
-                                kv_len=kv_len)
+        if tp is None:
+            out = chunked_attention(q, kf, vf, nkv, 0, causal=False,
+                                    kv_len=kv_len)
+        else:
+            out = _gqa_decode_cut(q, kf, vf, nkv, kv_len, tp).to(x.dtype)
+            if heads:
+                out = tp.block(out, 2)
     else:
-        out = chunked_attention(q, k, v, nkv, cfg.q_chunk, causal=True)
+        kk, vv, n_kv = k, v, nkv_l
+        if heads and not kv_cut:
+            # the kv heads this rank's q heads read: one when a kv head's
+            # group holds them all, else one per q head
+            g = nh // nkv
+            kvh = [(tp.index * nh_l + j) // g for j in range(nh_l)]
+            if g % nh_l == 0:
+                kk, vv, n_kv = k[:, :, kvh[0]:kvh[0] + 1], \
+                    v[:, :, kvh[0]:kvh[0] + 1], 1
+            else:
+                kk, vv, n_kv = k[:, :, kvh], v[:, :, kvh], nh_l
+        out = chunked_attention(q, kk, vv, n_kv, cfg.q_chunk, causal=True)
         if return_kv:
-            cache = {"k": k, "v": v}
-    out = out.reshape(b, t, nh * hd)
+            cache = {"k": tp.gather(k, 2) if kv_cut else k,
+                     "v": tp.gather(v, 2) if kv_cut else v}
+    out = out.reshape(b, t, nh_l * hd)
     return dense_apply(p["wo"], out), cache
+
+
+def _gqa_decode_cut(q, k, v, n_kv: int, kv_len, tp) -> torch.Tensor:
+    """q [B,T,H,D] against the rank's block k/v [B,S,Kv,D] of a cache cut
+    along the sequence -> [B,T,H,D] (f32), the softmax over every rank's
+    block."""
+    b, t, h, d = q.shape
+    qg = q.reshape(b, t, n_kv, h // n_kv, d)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k).to(torch.float32) \
+        * d ** -0.5
+    e, l = _merged_softmax(_slot_mask(s, kv_len, tp), tp)
+    o = coll.all_reduce(torch.einsum("bkgts,bskd->btkgd", e,
+                                     v.to(torch.float32)), tp.ctx, tp.axes)
+    return (o / l.permute(0, 3, 1, 2, 4)).reshape(b, t, h, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -227,11 +321,10 @@ def mla_init(generator: torch.Generator, cfg: AttnConfig, device) -> dict:
     return p
 
 
-def _mla_qkr(p, cfg: AttnConfig, x, positions):
-    """The queries and the compressed kv: q_nope, q_rope, c_kv, k_rope
-    (RoPE applied)."""
+def _mla_qkr(p, cfg: AttnConfig, x, positions, nh: int):
+    """The queries of ``nh`` heads and the compressed kv: q_nope, q_rope,
+    c_kv, k_rope (RoPE applied)."""
     b, t, _ = x.shape
-    nh = cfg.n_heads
     ql = rms_norm_apply(p["q_norm"], dense_apply(p["w_dq"], x))
     q = dense_apply(p["w_uq"], ql).reshape(
         b, t, nh, cfg.qk_nope_dim + cfg.qk_rope_dim)
@@ -249,11 +342,13 @@ def _mla_qkr(p, cfg: AttnConfig, x, positions):
 def mla_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
               positions: torch.Tensor, cache: Optional[dict] = None,
               kv_len: Optional[torch.Tensor] = None,
-              return_kv: bool = False) -> Tuple[torch.Tensor, Optional[dict]]:
+              return_kv: bool = False,
+              tp=None) -> Tuple[torch.Tensor, Optional[dict]]:
     b, t, _ = x.shape
-    nh = cfg.n_heads
+    heads, _ = _heads_tp(cfg, tp)
+    nh = cfg.n_heads // tp.size if heads else cfg.n_heads
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    q_nope, q_rope, c_kv, k_rope = _mla_qkr(p, cfg, x, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(p, cfg, x, positions, nh)
 
     if cache is None:
         # train / prefill: expanded form, chunked over queries
@@ -271,24 +366,36 @@ def mla_apply(p: dict, cfg: AttnConfig, x: torch.Tensor,
 
     # decode: absorbed latent attention against the compressed cache
     pos0 = _pos0(positions)
-    _write(cache["c_kv"], c_kv, pos0)
-    _write(cache["k_rope"], k_rope, pos0)
+    _write(cache["c_kv"], c_kv, pos0, tp)
+    _write(cache["k_rope"], k_rope, pos0, tp)
     ckv = cache["c_kv"].to(x.dtype)                        # [B,S,R]
     krp = cache["k_rope"].to(x.dtype)                      # [B,S,rope]
     w_uk = p["w_uk"]["w"].reshape(cfg.kv_lora_rank, nh, cfg.qk_nope_dim)
     # absorb: q' = q_nope @ W_uk^T -> latent-space queries [B,T,H,R]
     q_lat = torch.einsum("bthd,rhd->bthr", q_nope, w_uk.to(x.dtype))
+    if heads:                        # every head against the rank's slots
+        q_lat, q_rope = tp.gather(q_lat, 2), tp.gather(q_rope, 2)
     s = (torch.einsum("bthr,bsr->bhts", q_lat, ckv)
          + torch.einsum("bthd,bsd->bhts", q_rope, krp)).to(torch.float32)
     s = s * scale
-    sk = ckv.shape[1]
-    if kv_len is not None:
-        valid = torch.arange(sk, device=s.device)[None, :] < kv_len[:, None]
-        s = torch.where(valid[:, None, None], s,
-                        torch.tensor(NEG_INF, dtype=torch.float32,
-                                     device=s.device))
-    att = torch.softmax(s, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhts,bsr->bthr", att, ckv)          # latent context
+    if tp is None:
+        sk = ckv.shape[1]
+        if kv_len is not None:
+            valid = torch.arange(sk, device=s.device)[None, :] \
+                < kv_len[:, None]
+            s = torch.where(valid[:, None, None], s,
+                            torch.tensor(NEG_INF, dtype=torch.float32,
+                                         device=s.device))
+        att = torch.softmax(s, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhts,bsr->bthr", att, ckv)      # latent context
+    else:
+        e, l = _merged_softmax(_slot_mask(s, kv_len, tp), tp)
+        ctx = coll.all_reduce(torch.einsum("bhts,bsr->bthr", e,
+                                           ckv.to(torch.float32)),
+                              tp.ctx, tp.axes)
+        ctx = (ctx / l.permute(0, 2, 1, 3)).to(x.dtype)
+        if heads:
+            ctx = tp.block(ctx, 2)
     w_uv = p["w_uv"]["w"].reshape(cfg.kv_lora_rank, nh, cfg.v_head_dim)
     out = torch.einsum("bthr,rhd->bthd", ctx, w_uv.to(x.dtype))
     out = out.reshape(b, t, nh * cfg.v_head_dim)
@@ -302,15 +409,17 @@ def attention_init(generator: torch.Generator, cfg: AttnConfig,
 
 
 def attention_apply(p, cfg: AttnConfig, x, positions, cache=None,
-                    kv_len=None, return_kv=False):
+                    kv_len=None, return_kv=False, tp=None):
     fn = mla_apply if cfg.kind == "mla" else gqa_apply
     return fn(p, cfg, x, positions, cache=cache, kv_len=kv_len,
-              return_kv=return_kv)
+              return_kv=return_kv, tp=tp)
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Zeroed decode buffers; MLA takes no int8 (bf16 instead)."""
+    """Zeroed decode buffers on ``device`` (default ``cuda``: raises
+    without a card); MLA takes no int8 (bf16 instead)."""
+    device = resolve_device(device)
     if cfg.kind == "mla":
         d = torch.bfloat16 if dtype == torch.int8 else dtype
         return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),

@@ -1,10 +1,16 @@
-"""Mixture-of-Experts FFN, dense dispatch (PyTorch port of
-``repro.nn.moe``'s one-device path).
+"""Mixture-of-Experts FFN with two dispatch strategies (PyTorch port of
+``repro.nn.moe``).
 
-``moe_apply_dense``: every expert processes every token ([E, N, f]) and
-the outputs are gate-combined.  Exact: no capacity drops.  The expert-
-parallel dispatch of the JAX package (``moe_apply_ep``, an all_to_all
-over the ``model`` axis) waits for the mesh port of the LM family.
+* ``moe_apply_dense``: every expert processes every token ([E, N, f])
+  and the outputs are gate-combined.  Exact: no capacity drops.
+* ``moe_apply_ep``: expert parallelism on a ``repro_torch.dist`` mesh.
+  Each rank routes its own tokens; the experts live on the ``model``
+  axis.  Sort-based fixed-capacity dispatch: top-k -> stable argsort by
+  expert -> position in the expert from the counts -> scatter into an
+  [E, C, d] buffer (slots past the capacity C dropped) -> ``all_to_all``
+  over ``model`` -> the rank's experts' SwiGLU -> the inverse
+  ``all_to_all`` -> unsort and gate-combine.  The aux loss is averaged
+  over ``aux_axes``.
 
 Aux load-balance loss: Switch-style  E · Σ_e f_e · p̄_e.
 """
@@ -16,6 +22,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.api import P
 from repro_torch.nn.core import normal_init
 
 
@@ -27,7 +35,7 @@ class MoeConfig:
     top_k: int
     n_shared: int = 0            # shared (always-on) experts
     capacity_factor: float = 1.25
-    dispatch: str = "dense"      # "dense" | "ep" (ep: not on one device)
+    dispatch: str = "dense"      # "dense" | "ep" (ep: on a mesh only)
     router_aux_weight: float = 0.001
 
 
@@ -54,16 +62,25 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _router(p, cfg: MoeConfig, x: torch.Tensor):
-    """x [N,d] -> (gates [N,k] renormalised, idx [N,k], aux loss)."""
+def _router(p, cfg: MoeConfig, x: torch.Tensor, ctx=None, axes=()):
+    """x [N,d] -> (gates [N,k] renormalised, idx [N,k], aux loss).
+    ``axes``: the aux loss's token statistics summed over the ranks along
+    them (each holding its own tokens), as one device over all of them
+    would take them."""
     logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     vals, idx = top_k(probs, cfg.top_k)
     gates = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
     # Switch aux: fraction of tokens per expert × mean router prob per expert
-    f_e = torch.bincount(idx[:, 0], minlength=cfg.n_experts).to(
-        torch.float32) / idx.shape[0]
-    p_e = probs.mean(0)
+    count = torch.bincount(idx[:, 0], minlength=cfg.n_experts).to(
+        torch.float32)
+    if axes:
+        n = idx.shape[0] * ctx.size(axes)
+        f_e = coll.all_reduce_(count, ctx, axes) / n
+        p_e = coll.all_reduce(probs.sum(0), ctx, axes) / n
+    else:
+        f_e = count / idx.shape[0]
+        p_e = probs.mean(0)
     aux = cfg.n_experts * torch.sum(f_e * p_e)
     return gates.to(x.dtype), idx, aux
 
@@ -93,3 +110,84 @@ def moe_apply_dense(p, cfg: MoeConfig, x: torch.Tensor
                           device=x.device).scatter_add(1, idx, gates)
     y = torch.einsum("ne,end->nd", combine, y_e)
     return y + _shared_out(p, x), aux
+
+
+def capacity(cfg: MoeConfig, n_tokens: int) -> int:
+    """The slots of each expert for ``n_tokens`` tokens on a rank:
+    max(1, round(n·k / E · capacity_factor)), halves to even (Python's
+    ``round``, as the JAX package takes it)."""
+    return max(1, int(round(n_tokens * cfg.top_k / cfg.n_experts
+                            * cfg.capacity_factor)))
+
+
+def moe_apply_ep(p, cfg: MoeConfig, x: torch.Tensor, ctx,
+                 model_axes=("model",), aux_axes=("model",)
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel dispatch on ``ctx``'s mesh: x [n_loc, d] this
+    rank's tokens -> (their outputs [n_loc, d], the aux loss averaged
+    over ``aux_axes``).  ``p``'s expert stacks are the rank's block
+    [E / M, ...] over ``model_axes`` (M ranks); the router and the shared
+    experts are whole.  Slot j of the [N·k] (token, choice) pairs, sorted
+    stably by expert, lands at its position within its expert; positions
+    past ``capacity`` are dropped (their tokens get no output from that
+    expert)."""
+    n_loc, d = x.shape
+    n_model = ctx.size(model_axes)
+    e = cfg.n_experts
+    if e % n_model:
+        raise ValueError(f"moe_apply_ep: {e} experts do not divide "
+                         f"{model_axes} of size {n_model}")
+    e_loc = e // n_model
+    k = cfg.top_k
+    dev = x.device
+
+    gates, idx, aux = _router(p, cfg, x)
+    if aux_axes:
+        aux = coll.all_reduce(aux, ctx, aux_axes) / ctx.size(aux_axes)
+
+    n_slots = n_loc * k
+    cap = capacity(cfg, n_loc)
+    ea = idx.reshape(-1)                          # [n_slots] expert of slot
+    ga = gates.reshape(-1)
+    tok = torch.arange(n_slots, device=dev) // k
+    order = torch.argsort(ea, stable=True)
+    ea_s, tok_s, ga_s = ea[order], tok[order], ga[order]
+    counts = torch.bincount(ea, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(n_slots, device=dev) - starts[ea_s]
+    keep = pos < cap
+
+    send = torch.zeros((e, cap, d), dtype=x.dtype, device=dev).index_put(
+        (ea_s[keep], pos[keep]), x[tok_s[keep]])
+    # recv[i·E_loc + e'] is source rank i's tokens for local expert e'
+    recv = coll.all_to_all(send, ctx, model_axes, 0, 0)
+    recv = recv.reshape(n_model, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, n_model * cap, d)
+    h = torch.einsum("esd,edf->esf", recv, p["w_gate"].to(x.dtype))
+    u = torch.einsum("esd,edf->esf", recv, p["w_up"].to(x.dtype))
+    y = torch.einsum("esf,efd->esd", torch.nn.functional.silu(h) * u,
+                     p["w_down"].to(x.dtype))
+    y = y.reshape(e_loc, n_model, cap, d).transpose(0, 1).reshape(e, cap, d)
+    back = coll.all_to_all(y, ctx, model_axes, 0, 0)          # [E, C, d]
+
+    got = back[ea_s, torch.clamp(pos, 0, cap - 1)]
+    got = torch.where(keep[:, None], got, torch.zeros((), dtype=got.dtype,
+                                                      device=dev))
+    out = torch.zeros((n_loc, d), dtype=x.dtype, device=dev).index_add(
+        0, tok_s, got * ga_s[:, None])
+    return out + _shared_out(p, x), aux
+
+
+def moe_param_specs(cfg: MoeConfig, rules) -> dict:
+    """The layout ``moe_apply_ep`` takes its params in: the expert stacks
+    over ``expert``, the router and the shared experts replicated."""
+    ex = rules.get("expert")
+    p = {"router": P(None, None),
+         "w_gate": P(ex, None, None),
+         "w_up": P(ex, None, None),
+         "w_down": P(ex, None, None)}
+    if cfg.n_shared:
+        p["shared"] = {"w_gate": P(None, None),
+                       "w_up": P(None, None),
+                       "w_down": P(None, None)}
+    return p

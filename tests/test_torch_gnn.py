@@ -9,10 +9,13 @@ dense-adjacency and padded-edge cases on the port; ``CsrGraph``,
 ``NeighborSampler.sample`` and ``molecule_batch`` equal to the JAX
 package's arrays bit for bit; and ``examples/train_gnn.py``'s two runs,
 each port step taken from the JAX run's state before it.  On the CPU no
-kernel launches; under a mesh the model raises (ROADMAP item 7b).
+kernel launches; under a one-rank mesh the model runs its data- and
+edge-parallel paths and matches the run without one
+(``tests/test_torch_dist_lm_ranks.py`` holds four ranks to the JAX
+package).
 """
 
-import types
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -275,16 +278,55 @@ def test_configs_and_registry_match_jax():
             assert t.compute_dtype == torch.float32
 
 
-def test_mesh_guard_raises():
-    cfg = t_get_arch("gatedgcn").make_config("smoke")
-    _, tp = _params(j_get_arch("gatedgcn").make_config("smoke"))
-    batch = _tb(_smoke_batch("full_graph_sm", cfg, None))
-    mesh = types.SimpleNamespace(axis_names=("data", "model"),
-                                 shape={"data": 1, "model": 1})
-    with dist.use(dist.DistContext(mesh=mesh, rules=dist.default_rules())):
-        for fn in (tgcn.forward, tgcn.loss_fn):
-            with pytest.raises(NotImplementedError, match="item 7b"):
-                fn(tp, cfg, batch)
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A world of this one process (gloo) and the (1, 1) ("data",
+    "model") mesh on it."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh
+    path = tmp_path_factory.mktemp("pg") / "store"
+    tdist.init_process_group("gloo", init_method=f"file://{path}", rank=0,
+                             world_size=1)
+    try:
+        yield dist.DistContext(mesh=make_mesh((1, 1), ("data", "model"),
+                                              device="cpu"),
+                               rules=dist.default_rules())
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape", ("full_graph_sm", "molecule",
+                                   "edge_parallel"))
+def test_mesh_guard_raises(one_rank_mesh, shape):
+    """The mesh guard: under an active context ``forward`` and
+    ``loss_fn`` run (data-parallel over graphs, or edge-parallel for one
+    graph of at least ``EDGE_PARALLEL_MIN`` edges) and raise nothing; on a
+    one-rank mesh they match the calls without a context, gradients
+    included."""
+    cell = "full_graph_sm" if shape == "edge_parallel" else shape
+    jcfg = j_get_arch("gatedgcn").make_config("smoke", shape=cell)
+    cfg = t_get_arch("gatedgcn").make_config("smoke", shape=cell)
+    _, tp = _params(jcfg)
+    batch = _smoke_batch(cell, cfg, None)
+    if shape == "edge_parallel":
+        rs = np.random.RandomState(0)
+        n = batch["nodes"].shape[1]
+        edges = rs.randint(0, n, (1, tgcn.EDGE_PARALLEL_MIN + 8, 2))
+        edges[0, -8:] = -1
+        batch = dict(batch, edges=edges.astype(np.int32))
+    runs = []
+    for ctx in (None, one_rank_mesh):
+        with dist.use(ctx) if ctx else contextlib.nullcontext():
+            with torch.no_grad():
+                logits = tgcn.forward(tp, cfg, _tb(batch))
+            loss, grads = _port_loss_grads(tp, cfg, batch)
+        runs.append((logits, loss, grads))
+    (l0, s0, g0), (l1, s1, g1) = runs
+    np.testing.assert_allclose(l1.numpy(), l0.numpy(), **TOL)
+    np.testing.assert_allclose(s1, s0, **TOL)
+    for a, b in zip(g0, g1):
+        np.testing.assert_allclose(b, a, **TOL)
 
 
 # ---------------------------------------------------------------------------

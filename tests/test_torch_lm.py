@@ -8,11 +8,13 @@ within rtol = atol = 1e-5 in f32, with params from ``repro``'s init;
 ``LmStream``; and ``examples/lm_robe_embedding.py``'s two 120-step runs,
 each port step taken from the JAX run's state before it.  On the CPU the
 port runs its plain versions, so every kernel's ``launches`` count stays
-0.  Under a mesh every entry point raises (ROADMAP item 7b).
+0.  Under a one-rank mesh the entry points run the sharded LM and match
+the run without one (``tests/test_torch_dist_lm_ranks.py`` holds four
+ranks to the JAX package).
 """
 
+import contextlib
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -335,24 +337,58 @@ def test_lm_stream_matches_jax(step):
             np.testing.assert_array_equal(tb[k], jb[k])
 
 
-def test_mesh_guard_raises():
-    """Under an active context every entry point raises, naming ROADMAP
-    item 7b: nothing runs replicated where the JAX package would shard."""
-    jcfg, tcfg = _configs("qwen3-0.6b")
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A world of this one process (gloo) and the (1, 1) ("data",
+    "model") mesh on it: every sharded path of the LM runs, each
+    collective a copy."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_mesh
+    path = tmp_path_factory.mktemp("pg") / "store"
+    tdist.init_process_group("gloo", init_method=f"file://{path}", rank=0,
+                             world_size=1)
+    try:
+        yield dist.DistContext(mesh=make_mesh((1, 1), ("data", "model"),
+                                              device="cpu"),
+                               rules=dist.default_rules())
+    finally:
+        tdist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "minicpm3-4b"))
+def test_mesh_guard_raises(one_rank_mesh, arch):
+    """The mesh guard: under an active context the entry points run the
+    sharded LM (tensor, expert and sequence parallelism) and raise
+    nothing; on a one-rank mesh ``forward``, ``loss_fn`` (with its
+    gradients) and a prefill + ``decode_step`` chain match the same calls
+    without a context."""
+    jcfg, tcfg = _configs(arch, cache_dtype=jnp.float32)
     _, tp = _params(jcfg)
-    toks = _t(_tokens(jcfg.vocab)[0])
-    mesh = types.SimpleNamespace(axis_names=("data", "model"),
-                                 shape={"data": 1, "model": 1})
-    ctx = dist.DistContext(mesh=mesh, rules=dist.default_rules())
-    cache = ttr.init_cache(tcfg, 2, 4, "cpu")
-    with dist.use(ctx):
-        for call in (lambda: ttr.forward(tp, tcfg, toks),
-                     lambda: ttr.loss_fn(tp, tcfg, {"tokens": toks,
-                                                    "labels": toks}),
-                     lambda: ttr.decode_step(tp, tcfg, cache, toks[:, :1],
-                                             0)):
-            with pytest.raises(NotImplementedError, match="item 7b"):
-                call()
+    toks, labels = (_t(x) for x in _tokens(jcfg.vocab))
+    batch = {"tokens": toks, "labels": labels}
+    runs = []
+    for ctx in (None, one_rank_mesh):
+        with dist.use(ctx) if ctx else contextlib.nullcontext():
+            with torch.no_grad():
+                logits, aux = ttr.forward(tp, tcfg, toks)
+                _, _, pre = ttr.forward(tp, tcfg, toks[:, :12],
+                                        collect_cache=True,
+                                        logits_mode="last")
+                cache = ttr.fill_cache(tcfg, ttr.init_cache(
+                    tcfg, 2, 16, "cpu"), pre, 12)
+                steps = [ttr.decode_step(tp, tcfg, cache, toks[:, t:t + 1],
+                                         t)[0] for t in range(12, 16)]
+            loss, m, grads = _port_loss_grads(tp, tcfg, batch)
+        runs.append((logits, aux, loss, grads, steps))
+    (l0, a0, s0, g0, d0), (l1, a1, s1, g1, d1) = runs
+    np.testing.assert_allclose(l1.numpy(), l0.numpy(), **TOL)
+    np.testing.assert_allclose(float(a1), float(a0), **TOL)
+    np.testing.assert_allclose(s1, s0, **TOL)
+    for a, b in zip(g0, g1):
+        np.testing.assert_allclose(b, a, **TOL)
+    for a, b in zip(d0, d1):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), **TOL)
 
 
 # ---------------------------------------------------------------------------

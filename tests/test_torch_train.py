@@ -63,6 +63,18 @@ TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 M_SLOTS = 1021
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's small tensors: the suite runs
+    several test processes on the same cores, and a pool of a thread a
+    core in each of them oversubscribes the machine (the quickstart's
+    port runs, about 4 s alone here, took minutes beside the others)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_launches():
     """Every test here runs on the CPU: no kernel may be launched."""
