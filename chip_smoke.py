@@ -249,12 +249,26 @@ non-zero on failure:
    (``Drops``); GatedGCN ``full_graph_sm`` through the edge-parallel body,
    3 adam steps held as (i) holds them, then timed in turns with the steps
    without the mesh; each path's times and peak memory;
+   then (k) the launch tooling (``launch_cells``) on a new one-rank NCCL
+   mesh: ``launch.cells.build_cell`` builds ``dlrm-criteo-tb``'s
+   serve_p99, serve_bulk and train_batch cells on robe and GatedGCN's
+   molecule cell; each cell's ``fn`` runs on real inputs from the seed
+   (params from the port's init on the card), held with ``torch.equal``
+   to the same function called without the mesh (``serve_scores``, or
+   ``build_train_step`` of ``loss_fn`` and the cell's optimizer; the
+   ROBE array's update, which ``robe_lookup_bwd``'s atomics sum in no
+   fixed order, within the scatter's tolerance), with exactly the
+   launches of ``K_LAUNCHES`` and no other kernel, and timed (median of
+   ``K_REPS``); beside it, in processes on the host, the dry run's
+   counters on the same one-rank calls (their FLOPs, bytes and H100
+   roofline time) and ``python -m repro_torch.launch.dryrun --arch
+   dlrm-rm2 --mesh both --force``, every record of which must be ok;
 6. one JSON line of the recsys family's numbers, one of (h)'s, one of
-   (i)'s, one of (j)'s, one of kernel numbers (the training kernels'
-   ``launches_mesh``: (h)'s five ZeRO-3 steps; the ROBE kernels'
-   ``launches_lm`` and ``lm`` times at (i)'s shapes and
-   ``launches_lm_mesh`` of (j)'s prefill, decode step and training step),
-   then, last, the ok line.
+   (i)'s, one of (j)'s, one of (k)'s, one of kernel numbers (the
+   training kernels' ``launches_mesh``: (h)'s five ZeRO-3 steps; the ROBE
+   kernels' ``launches_lm`` and ``lm`` times at (i)'s shapes and
+   ``launches_lm_mesh`` of (j)'s prefill, decode step and training step;
+   ``launches_cells``, (k)'s launches a cell), then, last, the ok line.
 """
 
 from __future__ import annotations
@@ -315,6 +329,8 @@ from repro_torch.kernels.robe_lookup import bwd_plan
 from repro_torch.kernels.tt_lookup import RANKS as TT_RANKS
 from repro_torch.kernels.tt_lookup import bwd_plan as tt_bwd_plan
 from repro_torch.kernels.serve_fused import serve_fused_bwd_cuda
+from repro_torch.launch import cells as lcells
+from repro_torch.launch import roofline
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import gatedgcn as gcn
 from repro_torch.models import transformer as lm
@@ -506,6 +522,18 @@ J_ARCH, J_MOE_ARCH, J_MOE_LAYERS = "qwen3-0.6b", "qwen3-moe-30b-a3b", 2
 J_PREFILL_T, J_DECODE_STEPS = 4096, 4
 J_TRAIN_B, J_TRAIN_T, J_TRAIN_STEPS = 4, 4096, 2
 J_GNN_STEPS, J_TOL = 3, 1e-5
+# (k): the launch tooling's cells on a one-rank mesh, the launches each
+# cell's call must make (every other kernel 0), the timed repetitions
+K_CELLS = (("dlrm-criteo-tb", "serve_p99", "robe"),
+           ("dlrm-criteo-tb", "serve_bulk", "robe"),
+           ("dlrm-criteo-tb", "train_batch", "robe"),
+           ("gatedgcn", "molecule", "default"))
+_K_SERVE = {"robe_lookup": 1, "dot_interaction": 1}
+K_LAUNCHES = {"serve": _K_SERVE,
+              "train": {**_K_SERVE, "robe_lookup_bwd": 1,
+                        "dot_interaction_bwd": 1},
+              "gnn": {}}
+K_REPS = 5
 #: GatedGCN's full config, cells.py's adam lr; minibatch_lg samples a
 #: graph of Reddit's 232,965 nodes and REDDIT_EDGES of its 114,615,892
 #: edges (the most whose CsrGraph numpy builds in about 10 s on one core)
@@ -4385,6 +4413,245 @@ def lm_gnn_mesh(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase (k): the launch tooling's cells on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+# the dry run's counters on the same one-rank calls, in a process on the
+# host: a fake world of one rank, the (1, 1) mesh, every tensor fake
+K_FIGURES = """
+import json, sys
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.dist import api as dist
+from repro_torch.launch import cells, dryrun
+from repro_torch.launch.mesh import make_mesh
+dryrun.fake_world(1)
+ctx = dist.DistContext(mesh=make_mesh((1, 1), ("data", "model"),
+                                      device="cpu"),
+                       rules=dist.default_rules())
+out = {}
+for arch, shape, emb in json.loads(sys.argv[1]):
+    with FakeTensorMode(allow_non_fake_inputs=True), dist.use(ctx):
+        m = dryrun.measure(cells.build_cell(arch, shape, ctx, emb))
+    out["/".join((arch, shape, emb))] = {
+        k: m[k] for k in ("flops", "bytes_accessed", "collectives")}
+print(json.dumps(out))
+"""
+
+
+def k_host_runs() -> dict:
+    """Start the host's two processes of (k): the one-rank figures and
+    the ``dlrm-rm2`` dry run on both meshes (results to the checkout's
+    ``results/dryrun_torch``)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    run = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+               env=env, cwd=ROOT)
+    return {"figures": subprocess.Popen(
+                [sys.executable, "-c", K_FIGURES, json.dumps(K_CELLS)],
+                **run),
+            "dryrun": subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", "dlrm-rm2", "--mesh", "both", "--force"], **run)}
+
+
+def k_host_results(procs: dict) -> tuple:
+    """(the one-rank figures, the dlrm-rm2 records), each process's exit
+    required 0 and every record ok."""
+    outs = {}
+    for k, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        require(p.returncode == 0, f"(k) the {k} process exited "
+                f"{p.returncode}: {err[-2000:]}")
+        outs[k] = out
+    figures = json.loads(outs["figures"].strip().splitlines()[-1])
+    recs = {}
+    for path in sorted((ROOT / "results" / "dryrun_torch").glob(
+            "dlrm-rm2__*.json")):
+        if "probe" not in path.name:
+            recs[path.stem] = json.loads(path.read_text())
+    require(len(recs) == 32, f"(k) {len(recs)} dlrm-rm2 records, not 32")
+    bad = {k: r.get("error") for k, r in recs.items() if not r.get("ok")}
+    require(not bad, f"(k) dlrm-rm2 dry-run records failed: {bad}")
+    return figures, recs
+
+
+def k_inputs(cell, cfg, gen, dev) -> tuple:
+    """Real inputs of a cell's ``arg_shapes`` on the card, from ``gen``:
+    params from the port's init, zero optimizer state and step, a batch of
+    valid ids (each field below its vocabulary) and random dense rows;
+    each leaf required to have the fake leaf's shape and dtype."""
+    kind = cell.cell_id.split("/")[0]
+    if kind == "gatedgcn":
+        params = gcn.init_params(cfg, gen, dev)
+        shape = GNN_SHAPES["molecule"]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in molecule_batch(
+            shape["batch"], shape["n_nodes"], shape["n_edges"],
+            seed=SEED).items()}
+    else:
+        params = init_params(cfg, gen, dev)
+        n = cell.arg_shapes[-1]["sparse"].shape[0]
+        vocab = torch.tensor(cfg.vocab_sizes, device=dev)
+        batch = {"sparse": (torch.rand((n, len(cfg.vocab_sizes)),
+                                       generator=gen, device=dev)
+                            * vocab).long().clamp_max(vocab - 1).to(
+                                torch.int32),
+                 "dense": torch.randn((n, cfg.n_dense), generator=gen,
+                                      device=dev)}
+        if "label" in cell.arg_shapes[-1]:
+            batch["label"] = torch.randint(0, 2, (n,), generator=gen,
+                                           device=dev, dtype=torch.int32)
+    first = cell.arg_shapes[0]
+    if "params" in first:                  # a train cell's state
+        args = ({"params": params,
+                 "opt": tree_map(lambda x: torch.zeros(
+                     x.shape, dtype=x.dtype, device=dev), first["opt"]),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)},
+                batch)
+    else:
+        args = (params, batch)
+    for a, f in zip(args, cell.arg_shapes):
+        for x, y in zip(leaves(a), leaves(f)):
+            require(tuple(x.shape) == tuple(y.shape) and x.dtype == y.dtype,
+                    f"(k) {cell.cell_id}: an input {tuple(x.shape)} "
+                    f"{x.dtype} against the cell's {tuple(y.shape)} "
+                    f"{y.dtype}")
+    return args
+
+
+def k_clone(args):
+    return tree_map(lambda x: x.clone(), args)
+
+
+def k_hold(cell_id: str, got, want, memory_tol=None) -> dict:
+    """``got`` against ``want`` leaf by leaf with ``torch.equal``; with
+    ``memory_tol`` (the train cell) the ROBE array within it: its update
+    is a sum of atomics in no fixed order."""
+    out = {"equal": True}
+    flat_g, flat_w = leaves(got), leaves(want)
+    require(len(flat_g) == len(flat_w), f"(k) {cell_id}: the trees differ")
+    mem = None if memory_tol is None else \
+        got[0]["params"]["embedding"]["memory"]
+    for i, (a, b) in enumerate(zip(flat_g, flat_w)):
+        if torch.equal(a, b):
+            continue
+        if a is mem:
+            d = max_err(a, b)
+            out["memory_max_diff"] = d
+            require(d <= memory_tol, f"(k) {cell_id}: the ROBE array's "
+                    f"update is {d} from the call without the mesh "
+                    f"(tolerance {memory_tol})")
+            continue
+        out["equal"] = False
+        require(False, f"(k) {cell_id}: leaf {i} differs from the call "
+                f"without the mesh by {max_err(a, b)}")
+    return out
+
+
+def launch_cells(smi: str) -> dict:
+    """Phase (k): the ``K_CELLS`` of ``launch.cells`` on a one-rank NCCL
+    mesh, each held to its direct call, with its launches and its time;
+    the dry run's counters and the dlrm-rm2 dry run in processes on the
+    host beside it."""
+    import torch.distributed as tdist
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    procs = k_host_runs()
+    out = {"card": smi, "cells": {}}
+    ctx = one_rank_mesh(tempfile.mkdtemp())
+    try:
+        for axes in ("data", "model", ("data", "model")):
+            coll.all_reduce_(torch.zeros(1, device=dev), ctx, axes)
+        for arch, shape, emb in K_CELLS:
+            with dist.use(ctx):
+                cell = lcells.build_cell(arch, shape, ctx, emb)
+            gnn = arch == "gatedgcn"
+            train = "params" in cell.arg_shapes[0]
+            if gnn:
+                cfg = get_arch(arch).make_config("full", shape=shape)
+                opt = lcells.GNN_OPT
+                loss = lambda p, b: gcn.loss_fn(p, cfg, b)
+            else:
+                cfg = lcells.recsys_config(arch, emb)
+                opt = lcells.recsys_optimizer(arch)
+                loss = lambda p, b: loss_fn(p, cfg, b)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            args = k_inputs(cell, cfg, gen, dev)
+            real = dataclasses.replace(cell, arg_shapes=args)
+            rank_args = lcells.rank_args(real)
+            if train:
+                step = build_train_step(loss, make_optimizer(opt),
+                                        TrainConfig())
+                direct = lambda a=args: (lambda s, m: (s, m["loss"]))(
+                    *step(k_clone(a[0]), a[1]))
+            else:
+                direct = lambda a=args: serve_scores(a[0], cfg, a[1])
+            # the GNN's segment sums (index_add_) in their deterministic
+            # form, so that two runs of a step can agree bit for bit
+            det = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(gnn, warn_only=True)
+            try:
+                reset_launches()
+                got, ms_first = synced_ms(
+                    lambda: cell.fn(*k_clone(rank_args)))
+                c = launch_counts()
+                want = direct()
+                rerun = direct() if train and not gnn else None
+                # neither call writes into its inputs: time them as they are
+                ms = statistics.median(
+                    synced_ms(lambda: cell.fn(*rank_args))[1]
+                    for _ in range(K_REPS))
+            finally:
+                torch.use_deterministic_algorithms(det)
+            kind = "gnn" if gnn else ("train" if train else "serve")
+            expect = K_LAUNCHES[kind]
+            require(all(c.get(k, 0) == expect.get(k, 0)
+                        for k in set(c) | set(expect)),
+                    f"(k) {cell.cell_id}: launches {c}, expected {expect}")
+            tol = None
+            rec = {"launches": {k: v for k, v in c.items() if v},
+                   "ms": ms, "first_ms": ms_first}
+            if rerun is not None:
+                # the scatter's tolerance on the update, lr · |g|: the
+                # card's own rerun of the direct call shows its spread
+                upd = (want[0]["params"]["embedding"]["memory"]
+                       - args[0]["params"]["embedding"]["memory"]).abs()
+                tol = 1e-5 * float(upd.max()) + 1e-7
+                rec["memory_rerun_max_diff"] = max_err(
+                    rerun[0]["params"]["embedding"]["memory"],
+                    want[0]["params"]["embedding"]["memory"])
+                rec["memory_tol"] = tol
+            rec.update(k_hold(cell.cell_id, got, want, tol))
+            out["cells"]["/".join((arch, shape, emb))] = rec
+            print(f"(k) {cell.cell_id}: equal to the direct call, "
+                  f"launches {rec['launches']}, {ms:.3f} ms", flush=True)
+            del args, real, rank_args, got, want, rerun
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    t_host = time.perf_counter()
+    figures, recs = k_host_results(procs)
+    out["host_wait_s"] = time.perf_counter() - t_host
+    for key, f in figures.items():
+        rec = out["cells"][key]
+        rec.update(flops=f["flops"], bytes_accessed=f["bytes_accessed"],
+                   collectives_counted=f["collectives"],
+                   roofline_ms=1e3 * max(f["flops"] / roofline.PEAK_FLOPS,
+                                         f["bytes_accessed"]
+                                         / roofline.HBM_BW))
+    print("(k) the dry run's counters on the same one-rank calls: "
+          + json.dumps({k: {f: v[f] for f in ("flops", "bytes_accessed",
+                                               "roofline_ms", "ms")}
+                        for k, v in out["cells"].items()}), flush=True)
+    out["dryrun_dlrm_rm2"] = {"records": len(recs),
+                              "ok": sum(r["ok"] for r in recs.values()),
+                              "wall_s": {k: r["wall_s"]
+                                         for k, r in recs.items()}}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times and bounds
 # ---------------------------------------------------------------------------
 
@@ -5006,6 +5273,11 @@ def main() -> int:
           + json.dumps({k: round(v, 1) for k, v in lmj["parts_s"].items()}))
     lmj_launches = lmj["lm_dense"]["launches"]
 
+    # (k) the launch tooling's cells on a one-rank NCCL mesh
+    torch.cuda.empty_cache()
+    lmk = launch_cells(smi)
+    print(f"launch tooling's cells ok ({lmk['wall_s']:.1f} s)")
+
     launches = {"robe_lookup": c_unfused["robe_lookup"],
                 "dot_interaction": c_unfused["dot_interaction"],
                 "serve_fused": c_fused["serve_fused"],
@@ -5032,6 +5304,10 @@ def main() -> int:
             row["lm"] = lmg["lm_full_depth"]["kernels"][k]
             row["launches_lm_mesh"] = {part: lmj_launches[part].get(k, 0)
                                        for part in lmj_launches}
+        if k in TRAIN_KERNELS["robe"]:    # (k)'s cells
+            row["launches_cells"] = {
+                cell: rec["launches"].get(k, 0)
+                for cell, rec in lmk["cells"].items()}
         if "over_a" in err[k]:            # the scatter's error / A
             row["max_err_over_a"] = err[k]["over_a"]["float32"]
             row["max_err_over_a_bf16"] = err[k]["over_a"]["bfloat16"]
@@ -5048,6 +5324,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_res}))
     print(json.dumps({"lm_gnn": lmg}))
     print(json.dumps({"lm_gnn_mesh": lmj}))
+    print(json.dumps({"launch_cells": lmk}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,9 @@ module of its own for them).
   so that all take the same branch).
 
 ``counts`` adds one per call of each collective, so tests and the chip
-smoke can show a path really exchanged (the ZeRO-3 gather).  Each call is
+smoke can show a path really exchanged (the ZeRO-3 gather), and
+``nbytes`` the bytes of each call's output (the quantity the JAX dry run
+sums from a compiled module's HLO; ``launch.dryrun`` reads both).  Each call is
 a real collective even on a group of one rank (a copy), so a one-rank
 NCCL mesh runs every sharded code path.
 """
@@ -49,6 +51,14 @@ warnings.filterwarnings(
 
 #: calls of each collective since the last ``counts.clear()``
 counts: collections.Counter = collections.Counter()
+#: output bytes of each collective's calls since the last ``nbytes.clear()``
+nbytes: collections.Counter = collections.Counter()
+
+
+def _log(op: str, out: torch.Tensor) -> torch.Tensor:
+    counts[op] += 1
+    nbytes[op] += out.numel() * out.element_size()
+    return out
 
 
 def _front(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -56,17 +66,16 @@ def _front(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _gather(x, ctx, axes, dim):
-    counts["all_gather"] += 1
     n = ctx.size(axes)
     x = _front(x, dim)
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     tdist.all_gather_into_tensor(out, x, group=ctx.group(axes))
+    _log("all_gather", out)
     return out if dim == 0 else out.movedim(0, dim)
 
 
 def _scatter(x, ctx, axes, dim):
-    counts["reduce_scatter"] += 1
     n = ctx.size(axes)
     x = _front(x, dim)
     if x.shape[0] % n:
@@ -76,11 +85,11 @@ def _scatter(x, ctx, axes, dim):
                       dtype=x.dtype, device=x.device)
     tdist.reduce_scatter_tensor(out, x, op=tdist.ReduceOp.SUM,
                                 group=ctx.group(axes))
+    _log("reduce_scatter", out)
     return out if dim == 0 else out.movedim(0, dim)
 
 
 def _exchange(x, ctx, axes, split_dim, concat_dim):
-    counts["all_to_all"] += 1
     n = ctx.size(axes)
     if x.shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of size "
@@ -89,6 +98,7 @@ def _exchange(x, ctx, axes, split_dim, concat_dim):
     xs = _front(x, split_dim)
     out = torch.empty_like(xs)
     tdist.all_to_all_single(out, xs, group=ctx.group(axes))
+    _log("all_to_all", out)
     # out[j] is rank j's block for this rank: [n, S/n, ...rest] with the
     # split dim back in its place, then the n blocks joined along concat
     blocks = out.reshape((n, xs.shape[0] // n) + tuple(xs.shape[1:]))
@@ -100,10 +110,9 @@ def _exchange(x, ctx, axes, split_dim, concat_dim):
 
 
 def _reduce(x, ctx, axes, op=tdist.ReduceOp.SUM):
-    counts["all_reduce"] += 1
     out = x.contiguous().clone()
     tdist.all_reduce(out, op=op, group=ctx.group(axes))
-    return out
+    return _log("all_reduce", out)
 
 
 class _AllGather(torch.autograd.Function):
@@ -173,10 +182,9 @@ def all_reduce(x: torch.Tensor, ctx, axes) -> torch.Tensor:
 
 def all_reduce_(x: torch.Tensor, ctx, axes, op: str = "sum") -> torch.Tensor:
     """In-place all-reduce without a gradient; ``op`` is sum, max or min."""
-    counts["all_reduce"] += 1
     tdist.all_reduce(x, op=getattr(tdist.ReduceOp, op.upper()),
                      group=ctx.group(_axes(axes)))
-    return x
+    return _log("all_reduce", x)
 
 
 def _agree(flag, ctx, op: str) -> torch.Tensor:

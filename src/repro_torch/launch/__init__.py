@@ -1,3 +1,5 @@
 """Launch tooling (PyTorch port of ``repro.launch``): mesh and context
-builders over ``torch.distributed`` (``launch.mesh``).  The cell
-registry, dry-run, roofline and report modules are still to be ported."""
+constructors over ``torch.distributed`` (``launch.mesh``), the cell registry
+(``launch.cells``), the dry run on a fake world of 256 / 512 ranks
+(``launch.dryrun``), the H100 roofline (``launch.roofline``) and the
+report (``launch.report``)."""

@@ -8,7 +8,9 @@ other axes).  The caller initialises ``torch.distributed`` first (an
 address, a world size and a rank of its own; nothing on the machine tells
 a program of a cluster).  A mesh runs on ``cuda`` with NCCL unless the
 caller passes ``device="cpu"`` (gloo); there is no fallback from one to
-the other.
+the other.  A ``fake`` process group (the dry run's world of 256 or 512
+ranks, ``torch.testing._internal.distributed.fake_pg``) takes the
+caller's device unchecked.
 
 Building a mesh creates process groups, and ``new_group`` is collective
 over the world: every rank of the world builds every mesh, in the same
@@ -112,16 +114,22 @@ def _mesh_device(device) -> torch.device:
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
               device=None) -> Mesh:
     """The world's ranks row-major over ``axes`` of sizes ``shape``, on
-    ``cuda`` (NCCL) unless ``device`` names another (``"cpu"``: gloo)."""
+    ``cuda`` (NCCL) unless ``device`` names another (``"cpu"``: gloo; on
+    a ``fake`` process group, ``device`` as given)."""
     if not tdist.is_initialized():
         raise RuntimeError("make_mesh: call torch.distributed."
                            "init_process_group first")
-    dev = _mesh_device(device)
-    want = "nccl" if dev.type == "cuda" else "gloo"
     backend = str(tdist.get_backend())
-    if want not in backend:
-        raise ValueError(f"a {dev.type} mesh needs the {want} backend; the "
-                         f"process group runs {backend}")
+    if backend == "fake":
+        # a fake world (``launch.dryrun``) moves no bytes: the mesh takes
+        # the caller's device as it is
+        dev = torch.device("cuda" if device is None else device)
+    else:
+        dev = _mesh_device(device)
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        if want not in backend:
+            raise ValueError(f"a {dev.type} mesh needs the {want} backend; "
+                             f"the process group runs {backend}")
     n = int(np.prod(shape))
     if n != tdist.get_world_size():
         raise ValueError(f"mesh {tuple(shape)} needs {n} ranks; the world "

@@ -210,16 +210,18 @@ def _dlrm_interaction(params, cfg: RecsysConfig, batch: dict,
 
 
 def forward(params, cfg: RecsysConfig, batch: dict,
-            serve: bool = False) -> torch.Tensor:
+            serve: bool = False, gather: bool = True) -> torch.Tensor:
     """batch: {"dense": [B,n_dense], "sparse": [B,F]} -> logits [B].
 
     ``serve`` marks the inference path, where the fused serve kernel may
     engage (DLRM).  A batch may carry precomputed ``"emb"`` [B, F, dim];
     it takes precedence over the substrate lookup and the fused kernel.
-    Under a mesh: the global batch in, the global logits out.
+    Under a mesh: the global batch in, the global logits out (``gather``
+    False: this rank's rows, the output left cut over the mesh as the
+    JAX package's jit leaves it).
     """
-    return dist.gather_rows(_forward_rows(params, cfg, batch, serve),
-                            _batch_size(batch))
+    out = _forward_rows(params, cfg, batch, serve)
+    return dist.gather_rows(out, _batch_size(batch)) if gather else out
 
 
 def _forward_rows(params, cfg: RecsysConfig, batch: dict,
@@ -277,18 +279,22 @@ def _tower_rows(params, cfg: RecsysConfig, batch: dict
     return _l2_normalize(u), _l2_normalize(v)
 
 
-def tower_vectors(params, cfg: RecsysConfig, batch: dict
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """two-tower: -> (user [B,D], item [B,D]), L2-normalized."""
+def tower_vectors(params, cfg: RecsysConfig, batch: dict,
+                  gather: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """two-tower: -> (user [B,D], item [B,D]), L2-normalized (``gather``
+    as ``forward``'s)."""
     n = _batch_size(batch)
-    return tuple(dist.gather_rows(x, n)
-                 for x in _tower_rows(params, cfg, batch))
+    out = _tower_rows(params, cfg, batch)
+    return tuple(dist.gather_rows(x, n) for x in out) if gather else out
 
 
-def serve_scores(params, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
+def serve_scores(params, cfg: RecsysConfig, batch: dict,
+                 gather: bool = True) -> torch.Tensor:
     """Online/bulk inference: logits [B] (CTR) or retrieval scores
     [B, n_candidates] of the queries ``batch["sparse"]`` against the item
-    fields' ids ``batch["cand_sparse"]`` (two-tower)."""
+    fields' ids ``batch["cand_sparse"]`` (two-tower).  ``gather`` False:
+    under a mesh, this rank's rows of the CTR logits and its candidates'
+    scores (``forward``'s)."""
     if cfg.arch == "two_tower":
         u, _ = tower_vectors(params, cfg, batch)
         item_fields = tuple(range(cfg.n_user_fields, cfg.n_fields))
@@ -298,8 +304,10 @@ def serve_scores(params, cfg: RecsysConfig, batch: dict) -> torch.Tensor:
         cand = _embed(params, cfg, ids, fields=item_fields)
         vi = mlp_apply(params["item"], cand.reshape(cand.shape[0], -1))
         scores = u @ _l2_normalize(vi).T        # [B, rank's candidates]
+        if not gather:
+            return scores
         return dist.gather_rows(scores, ids.shape[0], dim=1)
-    return forward(params, cfg, batch, serve=True)
+    return forward(params, cfg, batch, serve=True, gather=gather)
 
 
 def loss_fn(params, cfg: RecsysConfig, batch: dict) -> Tuple[torch.Tensor,

@@ -674,8 +674,10 @@ def decode_step(params, cfg: TransformerConfig, caches, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens, tp, specs)
     kv_len = torch.full((tokens.shape[0],), pos + 1, dtype=torch.int32,
                         device=x.device)
-    positions = torch.full((tokens.shape[1],), pos, dtype=torch.int32,
-                           device=x.device)
+    # from Python data: the attention reads the position back as an int,
+    # which a fake tensor (the dry run's) answers only for such a tensor
+    positions = torch.tensor([pos] * tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
     for i, (p, c) in enumerate(zip(params.get("dense_layers", []),
                                    caches.get("dense_layers", []))):
         if tp is not None:

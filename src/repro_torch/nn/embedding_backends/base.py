@@ -17,6 +17,8 @@ row lookups.
   possibly degraded, mesh: the elastic re-slice contract)
 * ``cost(spec, batch)``                 -> {"params", "bytes_fetched",
   "flops"}, the substrate's own cost model
+* ``local_batch``                       -> True when lookups need no
+  model-axis exchange, so recsys batches may cut over the whole mesh
 
 ``get_backend(name)`` is the only dispatch point.
 """
@@ -40,6 +42,9 @@ class EmbeddingBackend:
     """Base class: generic bag pooling + replicated-local distribution."""
 
     name: str = ""
+    #: lookups are device-local (no model-axis embedding exchange): the
+    #: batch may cut over every mesh axis (the ``flat_batch`` rule)
+    local_batch: bool = True
     #: optional serve fast path: a backend that fuses lookup -> bag pooling
     #: -> dot interaction into one kernel overrides this with a method
     #: ``fused_serve(params, spec, idx, bot) -> [B, (F+1)·F/2]`` (or one

@@ -80,6 +80,7 @@ def full_lookup_sharded_body(table_shard: torch.Tensor, idx: torch.Tensor,
 
 class FullTableBackend(EmbeddingBackend):
     name = "full"
+    local_batch = False          # lookups exchange over `model`
 
     def init(self, generator, spec, device, pad_rows_to: int = 1) -> dict:
         rows = spec.total_rows

@@ -62,6 +62,17 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def expert_counts(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """The number of entries of ``idx`` (int) naming each of ``n_experts``
+    experts, as ``torch.bincount(idx, minlength=n_experts)`` counts them,
+    in a tensor whose shape does not depend on the data (so it traces
+    under fake tensors)."""
+    idx = idx.reshape(-1).long()
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=idx.device).index_add_(0, idx,
+                                                     torch.ones_like(idx))
+
+
 def _router(p, cfg: MoeConfig, x: torch.Tensor, ctx=None, axes=()):
     """x [N,d] -> (gates [N,k] renormalised, idx [N,k], aux loss).
     ``axes``: the aux loss's token statistics summed over the ranks along
@@ -72,8 +83,7 @@ def _router(p, cfg: MoeConfig, x: torch.Tensor, ctx=None, axes=()):
     vals, idx = top_k(probs, cfg.top_k)
     gates = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
     # Switch aux: fraction of tokens per expert × mean router prob per expert
-    count = torch.bincount(idx[:, 0], minlength=cfg.n_experts).to(
-        torch.float32)
+    count = expert_counts(idx[:, 0], cfg.n_experts).to(torch.float32)
     if axes:
         n = idx.shape[0] * ctx.size(axes)
         f_e = coll.all_reduce_(count, ctx, axes) / n
@@ -152,13 +162,18 @@ def moe_apply_ep(p, cfg: MoeConfig, x: torch.Tensor, ctx,
     tok = torch.arange(n_slots, device=dev) // k
     order = torch.argsort(ea, stable=True)
     ea_s, tok_s, ga_s = ea[order], tok[order], ga[order]
-    counts = torch.bincount(ea, minlength=e)
+    counts = expert_counts(ea, e)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n_slots, device=dev) - starts[ea_s]
     keep = pos < cap
 
-    send = torch.zeros((e, cap, d), dtype=x.dtype, device=dev).index_put(
-        (ea_s[keep], pos[keep]), x[tok_s[keep]])
+    # a dropped slot writes to one spare row past the E·C slots, which is
+    # cut off again: the shapes do not depend on how many slots drop
+    dest = torch.where(keep, ea_s * cap + pos,
+                       torch.full_like(pos, e * cap))
+    send = torch.zeros((e * cap + 1, d), dtype=x.dtype,
+                       device=dev).index_put((dest,), x[tok_s])
+    send = send[:e * cap].reshape(e, cap, d)
     # recv[i·E_loc + e'] is source rank i's tokens for local expert e'
     recv = coll.all_to_all(send, ctx, model_axes, 0, 0)
     recv = recv.reshape(n_model, e_loc, cap, d).transpose(0, 1).reshape(

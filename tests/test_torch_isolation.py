@@ -42,8 +42,9 @@ def test_distribution_packages_are_covered(package):
     ``repro.launch.mesh``) are among the files held above, and import
     ``torch.distributed``, never JAX's sharding."""
     files = [p for p in FILES if p.parent == PORT / package]
-    assert {p.name for p in files} >= {"__init__.py", "mesh.py"
-                                       if package == "launch" else "api.py"}
+    assert {p.name for p in files} >= (
+        {"__init__.py", "mesh.py", "cells.py", "dryrun.py", "roofline.py",
+         "report.py"} if package == "launch" else {"__init__.py", "api.py"})
     roots = set()
     for p in files:
         roots |= set(_imported_roots(p))
@@ -68,4 +69,6 @@ def test_importing_the_port_leaves_jax_unloaded():
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 20
     assert {"repro_torch.dist.api", "repro_torch.dist.collectives",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.launch.cells",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+            "repro_torch.launch.report"} <= set(mods)

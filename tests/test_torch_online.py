@@ -603,3 +603,116 @@ def test_fleet_staggered_push_cache_parity(tmp_path):
                            fl.replicas[0].params("full")["embedding"]["table"])
     stats = fl.cache_stats("full")
     assert len(stats) == 3 and all(s["resident_rows"] > 0 for s in stats)
+
+
+# ---------------------------------------------------------------------------
+# the acceptance scenario (tests/test_online.py::test_online_end_to_end)
+# ---------------------------------------------------------------------------
+
+def _online_end_to_end(pkg: dict, tmp_path, params=None) -> dict:
+    """The JAX package's acceptance scenario, run in ``pkg``'s modules: a
+    drifting stream trained live with a straggler that trips a stub
+    re-slice at step 17, publishes at 0, 10, ..., 40, then per policy a
+    replay of 512 requests with the four later publishes pushed mid-replay
+    and cache-on == cache-off scores checked after each push."""
+    vocabs = (1200, 600, 1800, 400)
+    tag = pkg["tag"]
+    pub = str(tmp_path / f"pub-{tag}")
+    server = pkg["server"].EmbeddingServer(pkg["server"].ServerConfig(
+        vocab_sizes=vocabs, embed_dim=8, n_dense=4, bot_mlp=(16, 8),
+        backends=("full",), cache_capacity=4096, model_dir=pub),
+        **pkg["server_kw"])
+    data = pkg["data"]
+    stream = data.CtrStream(data.CtrDataConfig(
+        vocab_sizes=vocabs, n_dense=4, batch_size=64, drift_period=10,
+        seed=5))
+    plan = pkg["elastic"].FaultPlan(slow_steps={14: 1.0, 15: 1.0, 16: 1.0},
+                                    base_dt=0.01)
+    kw = {} if params is None else dict(params=_to_torch(params))
+    tr = pkg["online"].OnlineTrainer(
+        server.recsys_config("full"), stream,
+        pkg["online"].OnlineConfig(publish_dir=pub, publish_every=10),
+        train_cfg=pkg["train_loop"].TrainConfig(checkpoint_every=10_000,
+                                                straggler_patience=3),
+        **kw)
+    init = _np(tr.state["params"])
+    reslice_steps = []
+
+    def stub_reslice(state, step):
+        # the reference's stub: same params, re-wrapped step_fn
+        reslice_steps.append(step)
+        return state, plan.wrap_step_fn(tr._step_fn)
+
+    rep = tr.run(40, fault_plan=plan, reslice_fn=stub_reslice,
+                 ckpt_dir=str(tmp_path / f"ft-{tag}"))
+    probe = stream.batch_at(999)
+    probe_batch = {"dense": probe["dense"], "sparse": probe["sparse"]}
+    parity_log = []
+
+    def push_and_check(step):
+        r = server.push("full", step=step)
+        on = server.score("full", probe_batch, use_cache=True)
+        off = server.score("full", probe_batch, use_cache=False)
+        parity_log.append((step, r.kind, np.array_equal(on, off)))
+
+    rp = pkg["replay"]
+    rcfg_data = data.CtrDataConfig(vocab_sizes=vocabs, n_dense=4,
+                                   batch_size=256, drift_period=2, seed=23)
+    replays = {}
+    for policy in ("deadline", "fixed"):
+        server.push("full", step=0)
+        rstream = data.RequestStream(rcfg_data)
+        cfg = rp.ReplayConfig(n_requests=512, rate_hz=2000.0, policy=policy,
+                              max_batch=32, max_queue=1024)
+        requests = rstream.requests(cfg.n_requests)
+        arrivals = data.poisson_arrivals(cfg.rate_hz, cfg.n_requests, seed=3)
+        server.cache("full").warm(rstream.id_batches(8))
+        score_fn = server.score_fn("full")
+        batch, nv = pkg["stack_and_pad"](requests[:1], cfg.max_batch)
+        score_fn(batch, n_valid=nv)                  # warm, off-timeline
+        span = float(arrivals[-1])
+        events = [(span * (k + 1) / 5, lambda s=s: push_and_check(s))
+                  for k, s in enumerate([10, 20, 30, 40])]
+        replays[policy] = rp.replay(rp.measured_service(score_fn), requests,
+                                    arrivals, cfg, events=events)
+    return {"init": init, "report": rep, "reslices": reslice_steps,
+            "replays": replays, "parity": parity_log}
+
+
+def test_online_end_to_end_same_as_jax(tmp_path):
+    """``tests/test_online.py::test_online_end_to_end`` in both packages:
+    the same re-slice, publishes and losses (1e-5), and in the port zero
+    dropped in-flight requests through four scheduled pushes a policy and
+    cache-on scores equal to cache-off after every push."""
+    from repro.data import synthetic_ctr as jdata
+    from repro.serve import replay as jreplay
+    from repro.serve.router import stack_and_pad as jpad
+    from repro_torch.data import synthetic_ctr as tdata
+    from repro_torch.serve.router import stack_and_pad as tpad
+
+    jax_pkg = dict(tag="j", server=jserver, server_kw={}, data=jdata,
+                   elastic=jelastic, online=jonline, train_loop=jtl,
+                   replay=jreplay, stack_and_pad=jpad)
+    torch_pkg = dict(tag="t", server=tserver, server_kw=dict(device="cpu"),
+                     data=tdata, elastic=telastic, online=tonline,
+                     train_loop=ttl, replay=treplay, stack_and_pad=tpad)
+    j = _online_end_to_end(jax_pkg, tmp_path)
+    t = _online_end_to_end(torch_pkg, tmp_path,
+                           params=j["init"])
+    for run in (j, t):
+        rep = run["report"]
+        assert rep.reslices == 1 and run["reslices"] == [17]
+        assert [p.step for p in rep.publishes] == [0, 10, 20, 30, 40]
+        for policy, r in run["replays"].items():
+            # zero dropped in-flight requests: everything admitted
+            # completes
+            assert r.shed == 0 and r.completed == 512, policy
+            assert r.pushes == 4 and r.mean_staleness_s > 0.0, policy
+        assert len(run["parity"]) == 8      # 4 checked pushes x 2 policies
+        assert {k for _, k, _ in run["parity"]} == {"delta"}
+        assert all(ok for _, _, ok in run["parity"]), run["parity"]
+    jrep, trep = j["report"], t["report"]
+    assert [(p.step, p.kind, p.n_touched) for p in trep.publishes] == \
+        [(p.step, p.kind, p.n_touched) for p in jrep.publishes]
+    np.testing.assert_allclose(trep.losses, jrep.losses, rtol=0,
+                               atol=LOSS_TOL)
