@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.robe import RobeSpec
 from repro_torch.dist import api as dist
 from repro_torch.dist import collectives as coll
@@ -226,14 +227,19 @@ def forward(params, cfg: RecsysConfig, batch: dict,
 
 def _forward_rows(params, cfg: RecsysConfig, batch: dict,
                   serve: bool = False) -> torch.Tensor:
-    """The logits of this rank's rows of the global ``batch``."""
+    """The logits of this rank's rows of the global ``batch``.  A DLRM
+    records the spans ``model.bot_mlp``, ``model.interaction`` and
+    ``model.top_mlp`` under a profiler (``repro_torch.tracing``)."""
     a = cfg.arch
     if a == "dlrm":
-        dense = dist.rows(batch["dense"]).to(cfg.compute_dtype)
-        bot = mlp_apply(params["bot"], dense, final_act=torch.relu)
-        inter = _dlrm_interaction(params, cfg, batch, bot, serve)
-        top_in = torch.cat([bot, inter], dim=-1)
-        return mlp_apply(params["top"], top_in)[:, 0]
+        with tracing.span("model.bot_mlp"):
+            dense = dist.rows(batch["dense"]).to(cfg.compute_dtype)
+            bot = mlp_apply(params["bot"], dense, final_act=torch.relu)
+        with tracing.span("model.interaction"):
+            inter = _dlrm_interaction(params, cfg, batch, bot, serve)
+        with tracing.span("model.top_mlp"):
+            top_in = torch.cat([bot, inter], dim=-1)
+            return mlp_apply(params["top"], top_in)[:, 0]
     emb = _batch_emb(params, cfg, batch)             # [B,F,D]
     b, f, d = emb.shape
     flat = emb.reshape(b, f * d)

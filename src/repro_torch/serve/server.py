@@ -46,6 +46,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.dist import api as dist
 from repro_torch.dist.param_specs import recsys_specs
@@ -220,23 +221,34 @@ class EmbeddingServer:
         sparse gather happens through the cache on the host and the scorer
         receives the rows as ``"emb"`` — the scores are bit-identical
         either way (``cacheable_rows`` contract).
+
+        Under a profiler the call records the spans ``server.score``
+        (count ``samples``: the batch's rows), ``server.copy_in``
+        (``h2d_bytes``), ``server.model`` and ``server.copy_out`` (it
+        waits for the card) (``repro_torch.tracing``).
         """
         if backend not in self._cfgs:
             raise KeyError(f"backend {backend!r} not resident; serving: "
                            f"{sorted(self._cfgs)}")
-        cache = self._caches[backend] if use_cache else None
-        dense = torch.as_tensor(batch["dense"]).to(self.device)
-        if cache is not None:
-            emb = cache.lookup(_host(batch["sparse"]), n_valid)
-            tb = {"dense": dense,
-                  "emb": torch.from_numpy(emb).to(self.device)}
-        else:
-            tb = {"dense": dense,
-                  "sparse": torch.as_tensor(batch["sparse"]).to(self.device)}
-        with torch.inference_mode(), dist.placed(self._specs.get(backend)):
-            out = serve_scores(self._params[backend], self._cfgs[backend],
-                               tb)
-        out = out.cpu().numpy()
+        with tracing.span("server.score") as root:
+            root.add("samples", len(batch["sparse"]))
+            cache = self._caches[backend] if use_cache else None
+            host = {"dense": batch["dense"]}
+            if cache is not None:
+                host["emb"] = torch.from_numpy(
+                    cache.lookup(_host(batch["sparse"]), n_valid))
+            else:
+                host["sparse"] = batch["sparse"]
+            with tracing.span("server.copy_in") as s:
+                tb = {k: torch.as_tensor(v).to(self.device)
+                      for k, v in host.items()}
+                s.add("h2d_bytes", sum(t.nbytes for t in tb.values()))
+            with tracing.span("server.model"), torch.inference_mode(), \
+                    dist.placed(self._specs.get(backend)):
+                out = serve_scores(self._params[backend],
+                                   self._cfgs[backend], tb)
+            with tracing.span("server.copy_out"):
+                out = out.cpu().numpy()
         return out[:n_valid] if n_valid is not None else out
 
     def score_fn(self, backend: str, *, use_cache: bool = True):

@@ -35,6 +35,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.dist import api as dist
 from repro_torch.dist import collectives as coll
 from repro_torch.train import checkpoint as ckpt_lib
@@ -161,6 +162,12 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     hands it to the lookups (``dist.placed``) and carries it as
     ``step_fn.param_specs`` (``run`` checkpoints the state's shards by
     it).
+
+    Under a profiler a step records the span ``train.step`` (count
+    ``samples``: the batch's rows), in it ``train.forward`` and
+    ``train.backward`` for each microbatch, ``train.guard`` (the finite
+    flag) and ``train.update`` (the update, the guard's keep and
+    ``project``) (``repro_torch.tracing``).
     """
     _check(cfg)
     if cfg.grad_accum < 1:
@@ -173,9 +180,11 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         for i in live:
             xs[i] = flat[i].detach().requires_grad_(True)
         with torch.enable_grad():
-            loss = loss_fn(unflatten(params, xs), batch)[0]
-            gs = torch.autograd.grad(loss, [xs[i] for i in live],
-                                     allow_unused=True)
+            with tracing.span("train.forward"):
+                loss = loss_fn(unflatten(params, xs), batch)[0]
+            with tracing.span("train.backward"):
+                gs = torch.autograd.grad(loss, [xs[i] for i in live],
+                                         allow_unused=True)
         grads = [None] * len(flat)
         for i, g in zip(live, gs):
             grads[i] = torch.zeros_like(flat[i]) if g is None else g
@@ -202,6 +211,11 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         return loss * inv, [None if a is None else a * inv for a in acc]
 
     def step_fn(state, batch):
+        with tracing.span("train.step") as s:
+            s.add("samples", len(next(iter(batch.values()))))
+            return one_step(state, batch)
+
+    def one_step(state, batch):
         params, opt_state, step = state["params"], state["opt"], state["step"]
         ctx = dist.current()
         if cfg.grad_compression != "none" and ctx is None:
@@ -225,25 +239,28 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                 if ef is not None:
                     state = dict(state, ef=unflatten(ef, [
                         None if r is None else r[None] for r in flat_r]))
-            finite = torch.isfinite(loss)
-            for g in flat_g:
-                if g is not None:
-                    finite &= torch.all(torch.isfinite(g))
-            if ctx is not None:
-                # every rank must take the same branch of the guard
-                finite = coll.agree_all(finite, ctx)
-            grads = unflatten(params, flat_g)
-            new_params, new_opt = optimizer.update(params, grads, opt_state,
-                                                   step)
-            params = tree_map(lambda new, old: torch.where(finite, new, old),
-                              new_params, params)
-            opt_state = tree_map(
-                lambda new, old: torch.where(finite, new, old), new_opt,
-                opt_state)
-            if project is not None:
-                # idempotent on a skipped update: a between-steps state
-                # projects to itself
-                params = project(params)
+            with tracing.span("train.guard"):
+                finite = torch.isfinite(loss)
+                for g in flat_g:
+                    if g is not None:
+                        finite &= torch.all(torch.isfinite(g))
+                if ctx is not None:
+                    # every rank must take the same branch of the guard
+                    finite = coll.agree_all(finite, ctx)
+            with tracing.span("train.update"):
+                grads = unflatten(params, flat_g)
+                new_params, new_opt = optimizer.update(params, grads,
+                                                       opt_state, step)
+                params = tree_map(
+                    lambda new, old: torch.where(finite, new, old),
+                    new_params, params)
+                opt_state = tree_map(
+                    lambda new, old: torch.where(finite, new, old), new_opt,
+                    opt_state)
+                if project is not None:
+                    # idempotent on a skipped update: a between-steps state
+                    # projects to itself
+                    params = project(params)
         state = dict(state, params=params, opt=opt_state, step=step + 1)
         return state, {"loss": loss, "finite": finite.to(F32)}
 
