@@ -104,9 +104,10 @@ non-zero on failure:
    runs on the card's array on the card and on the CPU, which must agree
    bit for bit, ``delta`` zero after it; for robe then the CPU's own run,
    the two held-out AUCs (steps 5000-5007) within 2e-3; (b) full ``dlrm-criteo-tb`` width: three SGD steps at
-   B = 512, params after each within rtol = atol = 1e-4 of the CPU run and
-   (robe, hashed, tt) each leaf's change since the start within 1e-3 of
-   its norm, then each card step again from the CPU's state, read as in
+   B = 512, the CPU's in the card's ReLU decisions (at most 4 of them
+   taken a step), params after each within rtol = atol = 1e-4 of the CPU
+   run and (robe, hashed, tt) each leaf's change since the start within
+   1e-3 of its norm, then each card step again from the CPU's state, read as in
    (a); then five adagrad steps at B = 65,536 with finite losses and
    exactly one launch a step of the substrate's lookup and its backward,
    ``dot_interaction`` and ``dot_interaction_bwd``, and none of the
@@ -406,11 +407,13 @@ TRAIN_TOL = 1e-4                      # full-width SGD params, card vs CPU
 #: One step whose ReLU input, or adagrad's first touch of a slot, sits
 #: within rounding of 0 can read far above UPDATE_TOL while the run is
 #: sound; a zeroed, mis-signed or mis-slotted gradient reads about 1 on
-#: every step.  The full-width SGD run reads its change since the start,
-#: each step within UPDATE_TOL.  Summation order alone reads 2.4e-6 (the
+#: every step.  The full-width SGD run, its CPU steps in the card's ReLU
+#: decisions, reads its change since the start, each step within
+#: UPDATE_TOL.  Summation order alone reads 2.4e-6 (the
 #: port against the JAX package on the CPU, tests/test_torch_train.py)
 #: and, card against CPU on an NVIDIA H100 80GB HBM3 at 700 W, about 7.5e-7
 #: on the quickstart and 3.6e-5 after three free SGD steps at full width
+#: (1.8e-4 on hashed's tables)
 UPDATE_TOL = 1e-3
 UPDATE_MEDIAN_TOL = 1e-4
 UPDATE_FLAG_SHARE = 0.01
@@ -551,9 +554,11 @@ GNN_HELD = {"minibatch_lg": (0, 9)}
 #: (``ReluMasks``), about four times the most that sound runs read (NVIDIA
 #: H100 80GB HBM3, 700 W; two whole-script runs and one of phase (i)):
 #: GatedGCN full_graph_sm 8, molecule 46, minibatch_lg 50 of 13.5M-385.6M
-#: a step; the recsys family 2 (``family_adam``)
+#: a step; the recsys family 2 (``family_adam``); phase 3's full-width
+#: SGD runs 1 of 1,900,544 (``full_width_path``: robe 0 at each of its
+#: three steps, qrobe and hashed 1 then 0 and 0, tt 1, 1 and 0)
 RELU_FLIP_LIMIT = {"full_graph_sm": 32, "molecule": 160,
-                   "minibatch_lg": 200, "family": 8}
+                   "minibatch_lg": 200, "family": 8, "full_width": 4}
 #: card -> (device memory bytes/s, f32 FLOP/s outside the tensor cores):
 #: the H100 SXM data sheet's peaks
 PEAKS = {"H100": (3.35e12, 67e12)}
@@ -1739,9 +1744,12 @@ def train_batches(b: int, n: int, dev) -> list:
 
 
 def full_width_path(cfg: RecsysConfig, params, kind: str = "robe") -> dict:
-    """(b): three SGD steps at B=512 on the card and on the CPU, params
-    compared after each, and their change since the start by
-    ``UpdateErr`` (M's change is far below the params' 1e-4 bound); then
+    """(b): three SGD steps at B=512 on the card and on the CPU, each CPU
+    step in the card step's ReLU decisions (``ReluMasks``; the decisions
+    that differ are counted, at most RELU_FLIP_LIMIT["full_width"] a
+    step), params compared after each, and their change since the start
+    by ``UpdateErr`` (M's change is far below the params' 1e-4 bound);
+    then
     each card step again from the CPU run's state before it, read as the
     quickstart's steps are; then five adagrad steps at B=65536 with the
     launch counts of every step.
@@ -1751,8 +1759,17 @@ def full_width_path(cfg: RecsysConfig, params, kind: str = "robe") -> dict:
     (one of three): a sample whose ReLU input sits within rounding of 0
     moves its whole backward (qrobe's bot/0/w read 1.1e-3 at step 0 on an
     NVIDIA H100 80GB HBM3 at 700 W, every element within 1e-3 of the
-    update's norm).  qrobe's steps are read before their ``project``, which
-    ``project_both`` then holds, as the quickstart's.  The free runs of
+    update's norm).  The free runs are held in the card's decisions because
+    one of them moves a run as much: a sample whose ReLU input the card
+    puts on the other side of 0 than the CPU read up to 5.1e-3 of a leaf's
+    change at step 0 (hashed and tt, one flip of 1,900,544 decisions, with
+    the bias added in the GEMM's epilogue on the card), and the runs then
+    part further at every step (to 1.1e-2 at step 2, tt); in the card's
+    decisions the step-0 gradients agree to 2.2e-6 and the three steps'
+    change since the start to 1.8e-4 (hashed's r_table), while a bias
+    gradient 1% off on the card reads 1e-2.  qrobe's steps are read before
+    their ``project``, which ``project_both`` then holds, as the
+    quickstart's.  The free runs of
     qrobe are held by their losses and their params but the scales and
     codes: plain SGD moves its scales by about two orders more than its
     weights (their gradient sums g · code over a group), and once a code
@@ -1765,14 +1782,25 @@ def full_width_path(cfg: RecsysConfig, params, kind: str = "robe") -> dict:
     start = to_device(params, "cpu")
     names = leaf_names(start)
     free = {"embedding/codes", "embedding/scale"} if project else set()
-    runs = {}
+    runs, masks, flips = {}, [], []
     for on_card in (True, False):
         snaps = []
 
         def hook(step_fn, snaps=snaps, cpu=not on_card):
             def step(state, batch):
                 before = state
-                state, m = step_fn(state, batch)
+                if cpu:
+                    with ReluMasks(masks[len(snaps)]) as rep:
+                        state, m = step_fn(state, batch)
+                    require(rep.at == len(rep.masks) > 0,
+                            f"{kind} full width SGD step {len(snaps)}: the "
+                            f"CPU step made {rep.at} ReLU calls, the card's "
+                            f"{len(rep.masks)}")
+                    flips.append(rep.flips)
+                else:
+                    with ReluMasks() as rec:
+                        state, m = step_fn(state, batch)
+                    masks.append(rec.masks)
                 raw = state
                 if cpu and project is not None:
                     # the projection the card's step runs inside, here
@@ -1789,6 +1817,11 @@ def full_width_path(cfg: RecsysConfig, params, kind: str = "robe") -> dict:
         train_run(cfg, to_device(params, "cuda" if on_card else "cpu"), opt,
                   lambda k: small[k], 3, hook, project if on_card else None)
         runs[on_card] = snaps
+    del masks
+    require(max(flips) <= RELU_FLIP_LIMIT["full_width"],
+            f"{kind} full width SGD: the CPU steps took {flips} ReLU "
+            f"decisions from the card's (at most "
+            f"{RELU_FLIP_LIMIT['full_width']} a step)")
     sgd_diff, since = 0.0, {}
     for k, (c, h) in enumerate(zip(runs[True], runs[False])):
         require(np.isfinite(c["loss"]) and
@@ -1855,6 +1888,7 @@ def full_width_path(cfg: RecsysConfig, params, kind: str = "robe") -> dict:
                 f"one each of {TRAIN_KERNELS[kind]} and no other kernel")
     res = {"sgd_b512_max_param_diff": sgd_diff,
            "sgd_b512_update": reading, "sgd_b512_losses": sgd_losses,
+           "sgd_b512_relu_flips": flips,
            "sgd_b512_codes_differing_from_cpu_steps": off,
            "adagrad_b65536_losses": rep.losses,
            "launches_per_step": per_step[0],

@@ -56,15 +56,37 @@ def mlp_init(generator: torch.Generator, dims: Sequence[int], device,
             for i in range(len(dims) - 1)]
 
 
+def bias_epilogue(p: dict, x: torch.Tensor, act: Optional[Callable]) -> bool:
+    """Whether the layer ``act(dense_apply(p, x))`` runs as one GEMM whose
+    epilogue adds the bias (``torch.addmm``: cuBLASLt's ``BIAS`` epilogue
+    on the card), then ``torch.relu``: ``act`` is ``torch.relu``, ``x`` is
+    2-D float32, the layer has a float32 bias, and both GEMM widths are
+    above 1 (PyTorch's condition for its cuBLASLt path).
+
+    The ReLU stays a pass of its own: cuBLASLt's ``RELU_BIAS`` epilogue
+    maps NaN to 0 in some of the kernels it picks for these shapes, where
+    ``torch.relu`` keeps NaN, and the train loop's NaN guard relies on
+    that."""
+    b = p.get("b")
+    return (act is torch.relu and b is not None and x.dim() == 2
+            and x.dtype == p["w"].dtype == b.dtype == torch.float32
+            and min(x.shape) > 1 and p["w"].shape[1] > 1)
+
+
 def mlp_apply(layers: list, x: torch.Tensor,
               act: Callable = torch.relu,
               final_act: Optional[Callable] = None) -> torch.Tensor:
+    """The layers in turn, ``act`` after each but the last and
+    ``final_act`` (if any) after the last.  A layer that
+    ``bias_epilogue`` admits adds its bias in the GEMM's epilogue."""
     for i, p in enumerate(layers):
+        a = act if i < len(layers) - 1 else final_act
+        if bias_epilogue(p, x, a):
+            x = torch.relu(torch.addmm(p["b"], x, p["w"]))
+            continue
         x = dense_apply(p, x)
-        if i < len(layers) - 1:
-            x = act(x)
-        elif final_act is not None:
-            x = final_act(x)
+        if a is not None:
+            x = a(x)
     return x
 
 
