@@ -17,8 +17,8 @@ FAULTS = ("unchanged", "half_batch", "alter")
 
 
 def _half(batch: dict) -> dict:
-    n = batch["sparse"].shape[0] // 2
-    return {k: v[:n] for k, v in batch.items()}
+    """The first half of every array of a unit, along its leading axis."""
+    return {k: v[:v.shape[0] // 2] for k, v in batch.items()}
 
 
 class Faulty:

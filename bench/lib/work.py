@@ -14,10 +14,13 @@ that the trace cannot tell from others).
 
 from __future__ import annotations
 
-#: (bytes/s, f32 FLOP/s outside the tensor cores) of one card, by a
-#: substring of ``torch.cuda.get_device_name()``: NVIDIA's H100 SXM data
-#: sheet, at its 700 W power limit
-PEAKS = {"H100": (3.35e12, 67e12)}
+#: (bytes/s, f32 FLOP/s outside the tensor cores, bf16 dense FLOP/s on the
+#: tensor cores) of one card, by a substring of
+#: ``torch.cuda.get_device_name()``: NVIDIA's H100 SXM data sheet, at its
+#: 700 W power limit, without sparsity.  A float32 configuration's ``mfu``
+#: and rooflines divide by entry 1 (``bound_s``); a bfloat16
+#: configuration's divide by entry 2.
+PEAKS = {"H100": (3.35e12, 67e12, 989e12)}
 
 
 def peaks(device_name: str) -> tuple:
@@ -28,8 +31,19 @@ def peaks(device_name: str) -> tuple:
 
 
 def bound_s(nbytes: float, flops: float, rates: tuple) -> float:
-    """The least time the card could take: bytes or operations at peak."""
+    """The least time the card could take: bytes or f32 operations at
+    peak."""
     return max(nbytes / rates[0], flops / rates[1])
+
+
+def robe_touched(cfg: dict, rows, device) -> int:
+    """``uniq``: how many distinct slots of the configuration's ROBE array
+    a lookup of ``rows`` [B, F] (field f is table f) reads, rehashed by
+    the reference's arithmetic."""
+    import torch
+    from reference.models import robe_of
+    return robe_of(cfg).touched(torch.as_tensor(rows).to(device),
+                                cfg["embed_dim"])
 
 
 def robe_lookup(b: int, f: int, d: int, uniq: int) -> tuple:
@@ -91,7 +105,3 @@ def xdeepfm_flops(cfg: dict) -> dict:
     fwd = (cin + 2 * sum(cfg["cin_layers"]) + _mlp([flat, *cfg["dnn"], 1])
            + 2 * flat)
     return {"score": fwd}
-
-
-def model_flops(cfg: dict) -> dict:
-    return {"dlrm": dlrm_flops, "xdeepfm": xdeepfm_flops}[cfg["arch"]](cfg)

@@ -22,6 +22,18 @@ their limits are also the last lines of standard error.  It exits with 2
 and prints no result without enough CUDA cards, and with 3 when ``jax``,
 ``jaxlib``, ``flax`` or ``repro`` was loaded.
 
+What differs by architecture is found by the configuration's ``arch`` in
+``bench/archs/<arch>.py``: the weights from the seed (``make_params``),
+the model's FLOPs a unit of work by traffic kind (``model_flops``), the
+ROBE slots a unit's ids reach (``touched``, None without a ROBE array)
+and the name of its plain reference, ``bench/reference/<REFERENCE>.py``.
+So a new architecture is added as new files only: ``archs/<arch>.py``
+and ``reference/<arch>.py``, its configuration, its traffic file and
+driver, its entry and workload file, its metric readers, and its entries
+in ``BENCHMARK.json``.  The plain reference imports nothing of the
+program and nothing of JAX; every function a driver calls on it takes
+``(params, cfg, *inputs, device=...)``.
+
 ``--fault`` and ``--control tf32`` are for the output check's own tests:
 a fault planted under the timed path (``lib/faults.py``), or the program
 run with TF32 matmuls, the next precision below the configuration's.
@@ -83,55 +95,94 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-class Reference:
-    """The plain reference of a configuration, on the weights the seed
-    makes (made again, not read from the program)."""
-
-    def __init__(self, cfg: dict, seed: int, device):
-        self.cfg, self.seed, self.device = cfg, seed, device
-
-    @functools.cached_property
-    def params(self) -> dict:
-        from lib.params import make_params
-        return make_params(self.cfg, self.seed, self.device)
-
-    def scores(self, batch: dict):
-        from reference.models import scores
-        return scores(self.params, self.cfg, batch, self.device)
-
-
-def _metric(name: str):
+def _load(kind: str, name: str):
+    """``bench/<kind>/<name>.py``, loaded by its path (a name may hold
+    dots)."""
     if not NAME.match(name):
-        raise ValueError(f"not a metric name: {name!r}")
+        raise ValueError(f"not a name of {kind}: {name!r}")
     spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + re.sub(r"\W", "_", name),
-        BENCH / "metrics" / f"{name}.py")
+        f"bench_{kind}_" + re.sub(r"\W", "_", name),
+        BENCH / kind / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
+def _metric(name: str):
+    return _load("metrics", name)
+
+
+def arch_of(cfg: dict):
+    """The module of the configuration's architecture."""
+    return _load("archs", cfg["arch"])
+
+
+class Reference:
+    """The plain reference of a configuration, on the weights the seed
+    makes (made again, not read from the program).  Any function of the
+    architecture's reference module is called with these weights, the
+    configuration and the device bound: ``reference.scores(batch)``."""
+
+    def __init__(self, cfg: dict, seed: int, device):
+        self.cfg, self.seed, self.device = cfg, seed, device
+        self.arch = arch_of(cfg)
+
+    @functools.cached_property
+    def params(self) -> dict:
+        return self.arch.make_params(self.cfg, self.seed, self.device)
+
+    @functools.cached_property
+    def module(self):
+        name = self.arch.REFERENCE
+        if not NAME.match(name):
+            raise ValueError(f"not a name of a reference: {name!r}")
+        return importlib.import_module("reference." + name)
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        fn = getattr(self.module, name)
+        return functools.partial(fn, self.params, self.cfg,
+                                 device=self.device)
+
+
+class _Absent(Exception):
+    """A reader asked for a count that the architecture does not have."""
+
+
+class Context(SimpleNamespace):
+    """What a per-layer reader reads; the model's FLOPs and the touched
+    slots are worked out only when a reader asks."""
+
+    @functools.cached_property
+    def flops(self) -> dict:
+        return self.arch.model_flops(self.cfg)
+
+
 def per_layer(cell, win, trace, pool, device, device_name: str) -> dict:
-    """Each of the cell's per-layer metrics that finds something to read."""
-    from lib.work import model_flops, peaks
-    from reference.models import robe_of
-    robe = robe_of(cell.cfg)
+    """Each of the cell's per-layer metrics that finds something to read.
+    A reader that asks for the touched slots of an architecture without a
+    ROBE array reads nothing."""
+    from lib.work import peaks
+    arch = arch_of(cell.cfg)
     touched = {}
 
     def count(i: int) -> int:
         if i not in touched:
-            import torch
-            rows = torch.as_tensor(pool[i]["sparse"]).to(device)
-            touched[i] = robe.touched(rows, cell.cfg["embed_dim"])
+            touched[i] = arch.touched(cell.cfg, pool[i], device)
+        if touched[i] is None:
+            raise _Absent(cell.cfg["arch"])
         return touched[i]
 
-    ctx = SimpleNamespace(trace=trace, win=win, pool=pool, cfg=cell.cfg,
-                          rates=peaks(device_name), touched=count,
-                          flops=model_flops(cell.cfg))
+    ctx = Context(trace=trace, win=win, pool=pool, cfg=cell.cfg, arch=arch,
+                  rates=peaks(device_name), touched=count)
     out = {}
     for name in cell.wl["per_layer"]:
         mod = _metric(name)
-        value = mod.read(ctx)
+        try:
+            value = mod.read(ctx)
+        except _Absent:
+            value = None
         if value is not None:
             out[name] = {"value": float(value), "unit": mod.UNIT}
     return out
@@ -144,7 +195,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, *,
     steps before the call, are printed with the rest."""
     import torch
     from lib.faults import Faulty
-    from lib.params import make_params
     from lib.trace import traced
     t_start = time.perf_counter() if t_start is None else t_start
     on_card = device.type == "cuda"
@@ -160,7 +210,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, *,
     marks = [("start", t_start), *marks, ("imports", time.perf_counter())]
     pool = driver.inputs(cell.cfg, cell.traffic, seed)
     marks.append(("inputs", time.perf_counter()))
-    entry = entry_mod.Entry(cell.cfg, make_params(cell.cfg, seed, device),
+    entry = entry_mod.Entry(cell.cfg,
+                            arch_of(cell.cfg).make_params(cell.cfg, seed,
+                                                          device),
                             device, cell.wl.get("entry_options", {}))
     if fault:
         entry = Faulty(entry, fault)
