@@ -1,5 +1,7 @@
-"""The five registered LM architectures (PyTorch port of
-``repro.configs.lm_archs``: the same full and smoke configs).
+"""The LM architectures: the JAX package's five (a port of
+``repro.configs.lm_archs``: the same full and smoke configs) and
+``moonlight-16b-a3b``, which only the port registers (it is not among
+``ARCH_IDS``, the JAX package's ids).
 
 ``embedding="robe"`` applies the paper's technique to the token-embedding
 table; default compression 8× (vocab tables are denser in information
@@ -105,3 +107,33 @@ _lm_bundle(
         compute_dtype=torch.float32, remat=False),
     notes="MHA (kv=40): the largest KV cache of the set; an int8 cache "
           "halves a bf16 one.")
+
+# --- moonlight-16b-a3b [moe] 27L d2048 16H MLA (no q down-projection,
+#     kv_lora 512, nope 128, rope 64, v 128), first layer dense @11264,
+#     MoE 64e top-6 of 1408 + 2 shared, sigmoid noaux_tc × 2.446 ---------
+_lm_bundle(
+    "moonlight-16b-a3b",
+    full_kw=dict(
+        n_layers=27, d_model=2048, n_heads=16, n_kv_heads=16, head_dim=128,
+        d_ff=1408, vocab=163840, attn_kind="mla", q_lora_rank=0,
+        kv_lora_rank=512, qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
+        rope_theta=5e4, n_experts=64, top_k=6, n_shared=2, first_k_dense=1,
+        d_ff_dense=11264, moe_dispatch="ep", moe_scoring="sigmoid",
+        routed_scale=2.446, norm_eps=1e-5, q_chunk=512,
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+        cache_dtype=torch.bfloat16),
+    smoke_kw=dict(
+        n_layers=3, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+        d_ff=32, vocab=512, attn_kind="mla", q_lora_rank=0, kv_lora_rank=16,
+        qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16, rope_theta=5e4,
+        n_experts=8, top_k=2, n_shared=1, first_k_dense=1, d_ff_dense=96,
+        moe_dispatch="ep", moe_scoring="sigmoid", routed_scale=2.446,
+        norm_eps=1e-5, q_chunk=8, compute_dtype=torch.float32,
+        cache_dtype=torch.float32, remat=False),
+    notes="Moonlight-16B-A3B (huggingface.co/moonshotai/Moonlight-16B-A3B, "
+          "config.json, model_type deepseek_v3): MLA with q_lora_rank "
+          "null, sigmoid noaux_tc routing with one group, RMSNorm eps "
+          "1e-5 (kv_norm keeps DeepSeek-V3's 1e-6).  The full config holds "
+          "bf16 params (62.7 GB in f32); one card takes it whole.  The "
+          "router's aux loss is the softmax bundles' Switch form over the "
+          "sigmoid scores normalised per token; serving discards it.")

@@ -33,7 +33,7 @@ from repro_torch.dist.api import P, axes_entry, axes_tuple
 from repro_torch.tree import leaves_up_to, tree_map, unflatten
 
 # dense sublayers of the attention blocks, classified Megatron-style
-_COL_W = {"wq", "wk", "wv", "w_uq", "w_uk", "w_uv"}
+_COL_W = {"wq", "wk", "wv", "w_q", "w_uq", "w_uk", "w_uv"}
 _ROW_W = {"wo"}
 
 

@@ -57,6 +57,7 @@ from typing import Any, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.core.robe import RobeSpec, init_memory
 from repro_torch.device import resolve_device
 from repro_torch.dist import api as dist
@@ -69,7 +70,8 @@ from repro_torch.nn.attention import (AttnConfig, _heads_tp, _q8,
 from repro_torch.nn.attention import init_cache as attn_init_cache
 from repro_torch.nn.core import normal_init, rms_norm_apply, rms_norm_init
 from repro_torch.nn.moe import (MoeConfig, _router, _shared_out,
-                                moe_apply_dense, moe_apply_ep, moe_init)
+                                moe_apply_dense, moe_apply_ep,
+                                moe_apply_grouped, moe_init)
 from repro_torch.tree import leaves, leaves_up_to, tree_map, unflatten
 
 
@@ -100,8 +102,10 @@ class TransformerConfig:
     n_shared: int = 0
     first_k_dense: int = 0
     d_ff_dense: int = 0              # hidden of the unrolled dense layers
-    moe_dispatch: str = "dense"      # "ep": dense on one device
+    moe_dispatch: str = "dense"      # "ep": grouped on one device
     capacity_factor: float = 1.25
+    moe_scoring: str = "softmax"     # "sigmoid": DeepSeek-V3's noaux_tc
+    routed_scale: float = 1.0
     # embedding compression (the paper's technique)
     embedding: str = "full"          # "full" | "robe"
     robe_size: int = 0
@@ -112,6 +116,7 @@ class TransformerConfig:
     remat: bool = True
     scan_layers: bool = True
     cache_dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6           # the block norms' and the final norm's
 
     @property
     def is_moe(self) -> bool:
@@ -141,7 +146,9 @@ class TransformerConfig:
                          n_experts=self.n_experts, top_k=self.top_k,
                          n_shared=self.n_shared,
                          capacity_factor=self.capacity_factor,
-                         dispatch=self.moe_dispatch)
+                         dispatch=self.moe_dispatch,
+                         scoring=self.moe_scoring,
+                         routed_scale=self.routed_scale)
 
     def robe_spec(self) -> RobeSpec:
         return RobeSpec(size=self.robe_size, block_size=self.robe_block,
@@ -152,8 +159,9 @@ class TransformerConfig:
         d, f = self.d_model, self.d_ff
         if self.attn_kind == "mla":
             qd = self.qk_nope_dim + self.qk_rope_dim
-            attn = (d * self.q_lora_rank + self.q_lora_rank * self.n_heads * qd
-                    + d * (self.kv_lora_rank + self.qk_rope_dim)
+            q = (d * self.q_lora_rank + self.q_lora_rank * self.n_heads * qd
+                 if self.q_lora_rank else d * self.n_heads * qd)
+            attn = (q + d * (self.kv_lora_rank + self.qk_rope_dim)
                     + self.kv_lora_rank * self.n_heads
                     * (self.qk_nope_dim + self.v_head_dim)
                     + self.n_heads * self.v_head_dim * d)
@@ -228,28 +236,37 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device) -> dict:
     """Random parameters in the JAX package's tree, drawn from
     ``generator`` in the order of its keys (embedding, the layers, the
-    head), the scanned layers stacked along a leading L dim."""
+    head), the scanned layers stacked along a leading L dim.  Each part is
+    converted to ``param_dtype`` as it is drawn, and the stacked leaves
+    are allocated once and filled layer by layer, so a bf16 config never
+    holds an f32 copy of the tree."""
+    def cast(tree):
+        return tree_map(lambda x: x.to(cfg.param_dtype), tree)
+
     params: dict = {}
     if cfg.embedding == "robe":
-        params["embed"] = {"memory": init_memory(generator, cfg.robe_spec(),
-                                                 device)}
+        params["embed"] = cast({"memory": init_memory(
+            generator, cfg.robe_spec(), device)})
     else:
-        params["embed"] = {"table": normal_init(
-            generator, (cfg.vocab_padded, cfg.d_model), device, 0.02)}
+        params["embed"] = cast({"table": normal_init(
+            generator, (cfg.vocab_padded, cfg.d_model), device, 0.02)})
     if cfg.first_k_dense:
         params["dense_layers"] = [
-            _layer_init(generator, cfg, False, device)
+            cast(_layer_init(generator, cfg, False, device))
             for _ in range(cfg.first_k_dense)]
-    stack = [_layer_init(generator, cfg, cfg.is_moe, device)
-             for _ in range(n_scanned(cfg))]
-    params["layers"] = tree_map(lambda *xs: torch.stack(xs), *stack)
-    del stack
-    params["final_norm"] = rms_norm_init(cfg.d_model, device)
+    n = n_scanned(cfg)
+    for i in range(n):
+        layer = cast(_layer_init(generator, cfg, cfg.is_moe, device))
+        if i == 0:
+            params["layers"] = tree_map(
+                lambda x: x.new_empty((n,) + tuple(x.shape)), layer)
+        for dst, src in zip(leaves(params["layers"]), leaves(layer)):
+            dst[i].copy_(src)
+        del layer
+    params["final_norm"] = cast(rms_norm_init(cfg.d_model, device))
     params["lm_head"] = normal_init(generator, (cfg.d_model,
                                                 cfg.vocab_padded), device,
-                                    0.02)
-    if cfg.param_dtype != torch.float32:
-        params = tree_map(lambda x: x.to(cfg.param_dtype), params)
+                                    0.02).to(cfg.param_dtype)
     return params
 
 
@@ -271,7 +288,7 @@ def layer_params(params: dict) -> list:
 # the layout on a mesh: each leaf's compute view
 # ---------------------------------------------------------------------------
 
-_COL = {"wq", "w_uq", "w_uk", "w_uv"}
+_COL = {"wq", "w_q", "w_uq", "w_uk", "w_uv"}
 
 
 def _want(path: tuple, ndim: int, cfg: TransformerConfig, tp: Tp):
@@ -379,7 +396,11 @@ def _moe_block(p, cfg: TransformerConfig, x: torch.Tensor,
     b, t, d = x.shape
     mcfg = cfg.moe_cfg()
     if tp is None:
-        y, aux = moe_apply_dense(p, mcfg, x.reshape(b * t, d))
+        apply = moe_apply_grouped if mcfg.dispatch == "ep" else \
+            moe_apply_dense
+        with tracing.span("lm.moe") as sp:
+            sp.add("slots", b * t * mcfg.top_k)
+            y, aux = apply(p, mcfg, x.reshape(b * t, d))
         return y.reshape(b, t, d), aux
     if mcfg.dispatch == "ep":
         # the rank's tokens: over (data, model) with the sequence cut, else
@@ -414,22 +435,24 @@ def _layer_apply(p, cfg: TransformerConfig, moe: bool, x, positions,
     """One block: (x, aux, the prefill's kv or the decode cache).  With
     ``tp`` x is in the layout between blocks and ``p`` the rank's
     views."""
-    h = rms_norm_apply(p["attn_norm"], x)
-    if tp is not None:
-        h = tp.seq_in(h)
-    h, kv = attention_apply(p["attn"], cfg.attn_cfg(), h, positions,
-                            cache=cache, kv_len=kv_len,
-                            return_kv=collect_kv, tp=tp)
-    if tp is not None:
-        h = tp.seq_out(h, _heads_tp(cfg.attn_cfg(), tp)[0])
-    x = x + h
-    hin = rms_norm_apply(p["ffn_norm"], x)
-    if moe:
-        h, aux = _moe_block(p["moe"], cfg, hin, tp)
-    else:
-        h = _dense_ffn_apply(p["ffn"], hin, tp, tp is not None and
-                             tp.splits(_ffn_width(cfg)))
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    with tracing.span("lm.attn"):
+        h = rms_norm_apply(p["attn_norm"], x, cfg.norm_eps)
+        if tp is not None:
+            h = tp.seq_in(h)
+        h, kv = attention_apply(p["attn"], cfg.attn_cfg(), h, positions,
+                                cache=cache, kv_len=kv_len,
+                                return_kv=collect_kv, tp=tp)
+        if tp is not None:
+            h = tp.seq_out(h, _heads_tp(cfg.attn_cfg(), tp)[0])
+        x = x + h
+    with tracing.span("lm.ffn"):
+        hin = rms_norm_apply(p["ffn_norm"], x, cfg.norm_eps)
+        if moe:
+            h, aux = _moe_block(p["moe"], cfg, hin, tp)
+        else:
+            h = _dense_ffn_apply(p["ffn"], hin, tp, tp is not None and
+                                 tp.splits(_ffn_width(cfg)))
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, aux, kv
 
 
@@ -455,7 +478,8 @@ def _trunk(params, cfg: TransformerConfig, tokens: torch.Tensor,
     specs = None if tp is None else dist.live_specs()
     if tp is not None:
         tokens = tp.rows(tokens)
-    x = _embed(params, cfg, tokens, tp, specs)
+    with tracing.span("lm.embed"):
+        x = _embed(params, cfg, tokens, tp, specs)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     dense_kv = []
@@ -486,7 +510,7 @@ def _trunk(params, cfg: TransformerConfig, tokens: torch.Tensor,
             x, aux, kv = body(layer_p, x)
         aux_total = aux_total + aux
         kvs.append(_shard_kv(kv, tp))
-    x = rms_norm_apply(params["final_norm"], x)
+    x = rms_norm_apply(params["final_norm"], x, cfg.norm_eps)
     cache = None
     if collect_cache:
         cache = {"layers": _stack_kv(kvs)}
@@ -499,15 +523,16 @@ def _head(params, cfg: TransformerConfig, x: torch.Tensor, last: bool,
           tp: Optional[Tp]) -> torch.Tensor:
     """The logits of x (the last position's with ``last``); with ``tp``
     the rank's vocabulary columns of its rows."""
-    w = params["lm_head"]
-    if tp is not None:
-        specs = dist.live_specs()
-        w = tp.view(w, None if specs is None else specs["lm_head"],
-                    _want(("lm_head",), w.dim(), cfg, tp))
-        x = tp.seq_in(x)
-    if last:
-        x = x[:, -1]
-    return x @ w.to(x.dtype)
+    with tracing.span("lm.head"):
+        w = params["lm_head"]
+        if tp is not None:
+            specs = dist.live_specs()
+            w = tp.view(w, None if specs is None else specs["lm_head"],
+                        _want(("lm_head",), w.dim(), cfg, tp))
+            x = tp.seq_in(x)
+        if last:
+            x = x[:, -1]
+        return x @ w.to(x.dtype)
 
 
 def _gather_logits(logits: torch.Tensor, cfg: TransformerConfig,
@@ -531,9 +556,14 @@ def forward(params, cfg: TransformerConfig, tokens: torch.Tensor,
     mesh the rank's rows and, when T divides the model axes, its block of
     the sequence: the decode caches' cut)."""
     tp = _plan(tokens.shape[1])
-    x, aux_total, cache = _trunk(params, cfg, tokens, collect_cache, tp)
-    logits = _gather_logits(_head(params, cfg, x, logits_mode == "last",
-                                  tp), cfg, tp, tokens.shape[0])
+    b, t = tokens.shape
+    with tracing.span("lm.prefill") as sp:
+        sp.add("samples", b)
+        sp.add("tokens", b * t)
+        sp.add("cache_len", t)
+        x, aux_total, cache = _trunk(params, cfg, tokens, collect_cache, tp)
+        logits = _gather_logits(_head(params, cfg, x, logits_mode == "last",
+                                      tp), cfg, tp, b)
     if collect_cache:
         return logits, aux_total, cache
     return logits, aux_total
@@ -667,11 +697,21 @@ def decode_step(params, cfg: TransformerConfig, caches, tokens: torch.Tensor,
     global."""
     pos = int(pos)
     n = tokens.shape[0]
+    with tracing.span("lm.decode") as sp:
+        sp.add("samples", n)
+        sp.add("tokens", tokens.numel())
+        sp.add("cache_len", pos + 1)
+        return _decode(params, cfg, caches, tokens, pos, n)
+
+
+def _decode(params, cfg: TransformerConfig, caches, tokens: torch.Tensor,
+            pos: int, n: int) -> Tuple[torch.Tensor, Any]:
     tp = _plan(tokens.shape[1])
     specs = None if tp is None else dist.live_specs()
     if tp is not None:
         tokens = tp.rows(tokens)
-    x = _embed(params, cfg, tokens, tp, specs)
+    with tracing.span("lm.embed"):
+        x = _embed(params, cfg, tokens, tp, specs)
     kv_len = torch.full((tokens.shape[0],), pos + 1, dtype=torch.int32,
                         device=x.device)
     # from Python data: the attention reads the position back as an int,
@@ -693,6 +733,6 @@ def decode_step(params, cfg: TransformerConfig, caches, tokens: torch.Tensor,
         layer_c = {k: v[i] for k, v in caches["layers"].items()}
         x, _, _ = _layer_apply(layer_p, cfg, cfg.is_moe, x, positions, tp=tp,
                                cache=layer_c, kv_len=kv_len)
-    x = rms_norm_apply(params["final_norm"], x)
+    x = rms_norm_apply(params["final_norm"], x, cfg.norm_eps)
     logits = _gather_logits(_head(params, cfg, x, True, tp), cfg, tp, n)
     return logits, caches

@@ -51,7 +51,8 @@ class AttnConfig:
     qkv_bias: bool = False       # qwen1.5
     rope_theta: float = 1e4
     q_chunk: int = 512           # 0 = unchunked
-    # MLA dims (minicpm3 / deepseek-style)
+    # MLA dims (minicpm3 / deepseek-style; q_lora_rank 0: no q
+    # down-projection, one w_q as DeepSeek-V2-Lite and Moonlight have)
     q_lora_rank: int = 768
     kv_lora_rank: int = 256
     qk_nope_dim: int = 64
@@ -310,9 +311,12 @@ def mla_init(generator: torch.Generator, cfg: AttnConfig, device) -> dict:
         return dense_init(generator, d_in, d_out, device, bias=False,
                           scale=0.02)
 
-    p = {"w_dq": dense(cfg.d_model, cfg.q_lora_rank)}
-    p["q_norm"] = rms_norm_init(cfg.q_lora_rank, device)
-    p["w_uq"] = dense(cfg.q_lora_rank, nh * qd)
+    if cfg.q_lora_rank:
+        p = {"w_dq": dense(cfg.d_model, cfg.q_lora_rank)}
+        p["q_norm"] = rms_norm_init(cfg.q_lora_rank, device)
+        p["w_uq"] = dense(cfg.q_lora_rank, nh * qd)
+    else:
+        p = {"w_q": dense(cfg.d_model, nh * qd)}
     p["w_dkv"] = dense(cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim)
     p["kv_norm"] = rms_norm_init(cfg.kv_lora_rank, device)
     p["w_uk"] = dense(cfg.kv_lora_rank, nh * cfg.qk_nope_dim)
@@ -325,9 +329,12 @@ def _mla_qkr(p, cfg: AttnConfig, x, positions, nh: int):
     """The queries of ``nh`` heads and the compressed kv: q_nope, q_rope,
     c_kv, k_rope (RoPE applied)."""
     b, t, _ = x.shape
-    ql = rms_norm_apply(p["q_norm"], dense_apply(p["w_dq"], x))
-    q = dense_apply(p["w_uq"], ql).reshape(
-        b, t, nh, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if cfg.q_lora_rank:
+        ql = rms_norm_apply(p["q_norm"], dense_apply(p["w_dq"], x))
+        q = dense_apply(p["w_uq"], ql)
+    else:
+        q = dense_apply(p["w_q"], x)
+    q = q.reshape(b, t, nh, cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope = q[..., :cfg.qk_nope_dim]
     q_rope = q[..., cfg.qk_nope_dim:]
     dkv = dense_apply(p["w_dkv"], x)

@@ -1,8 +1,14 @@
-"""Mixture-of-Experts FFN with two dispatch strategies (PyTorch port of
-``repro.nn.moe``).
+"""Mixture-of-Experts FFN with three dispatch strategies (PyTorch port of
+``repro.nn.moe``, plus the one-device grouped dispatch).
 
 * ``moe_apply_dense``: every expert processes every token ([E, N, f])
   and the outputs are gate-combined.  Exact: no capacity drops.
+* ``moe_apply_grouped``: the dropless dispatch on one device.  The
+  (token, choice) pairs sorted stably by expert, each expert's SwiGLU over
+  its own rows only (on the card three grouped GEMMs, ``torch._grouped_mm``,
+  fed the experts' row offsets on the card: no count is read on the host),
+  the outputs gate-scaled and added back by token.  Its result is the
+  dense dispatch's, summed in another order.
 * ``moe_apply_ep``: expert parallelism on a ``repro_torch.dist`` mesh.
   Each rank routes its own tokens; the experts live on the ``model``
   axis.  Sort-based fixed-capacity dispatch: top-k -> stable argsort by
@@ -12,13 +18,25 @@
   ``all_to_all`` -> unsort and gate-combine.  The aux loss is averaged
   over ``aux_axes``.
 
-Aux load-balance loss: Switch-style  E · Σ_e f_e · p̄_e.
+Routers: ``softmax`` (top-k of the softmax, renormalised) or ``sigmoid``
+(DeepSeek-V3's ``noaux_tc`` with one group: top-k of the sigmoid scores
+plus a correction bias that selects but does not weight; the gates are
+the chosen scores divided by their sum, times ``routed_scale``).
+
+Aux load-balance loss: Switch-style  E · Σ_e f_e · p̄_e, p̄ the router's
+per-token probabilities (sigmoid scores normalised per token).
+
+``route_log()`` records the experts every router call chooses while it is
+open (off by default, one check a call): a reference can then replay the
+same choices and count where its own differ.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Tuple
+import threading
+from typing import List, Tuple
 
 import torch
 
@@ -35,8 +53,10 @@ class MoeConfig:
     top_k: int
     n_shared: int = 0            # shared (always-on) experts
     capacity_factor: float = 1.25
-    dispatch: str = "dense"      # "dense" | "ep" (ep: on a mesh only)
+    dispatch: str = "dense"      # "dense" | "ep" (grouped on one device)
     router_aux_weight: float = 0.001
+    scoring: str = "softmax"     # "softmax" | "sigmoid" (noaux_tc)
+    routed_scale: float = 1.0    # the gates' factor (sigmoid routing)
 
 
 def moe_init(generator: torch.Generator, cfg: MoeConfig, device) -> dict:
@@ -52,6 +72,8 @@ def moe_init(generator: torch.Generator, cfg: MoeConfig, device) -> dict:
                        "w_up": normal_init(generator, (d, fs), device, 0.02),
                        "w_down": normal_init(generator, (fs, d), device,
                                              0.02)}
+    if cfg.scoring == "sigmoid":
+        p["score_bias"] = normal_init(generator, (e,), device, 0.02)
     return p
 
 
@@ -73,15 +95,46 @@ def expert_counts(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
                                                      torch.ones_like(idx))
 
 
+class RouteLog:
+    """The experts each router call chose while the log was open, in call
+    order: one [N, k] int64 tensor a call, on the device (no copy)."""
+
+    def __init__(self):
+        self.idx: List[torch.Tensor] = []
+
+
+_ROUTES = threading.local()
+
+
+@contextlib.contextmanager
+def route_log():
+    """Record, in the calling thread, the expert ids of every router call
+    made inside the block; yields the ``RouteLog``."""
+    log, prev = RouteLog(), getattr(_ROUTES, "log", None)
+    _ROUTES.log = log
+    try:
+        yield log
+    finally:
+        _ROUTES.log = prev
+
+
 def _router(p, cfg: MoeConfig, x: torch.Tensor, ctx=None, axes=()):
-    """x [N,d] -> (gates [N,k] renormalised, idx [N,k], aux loss).
+    """x [N,d] -> (gates [N,k], idx [N,k], aux loss).
     ``axes``: the aux loss's token statistics summed over the ranks along
     them (each holding its own tokens), as one device over all of them
     would take them."""
     logits = x.to(torch.float32) @ p["router"].to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)
-    vals, idx = top_k(probs, cfg.top_k)
-    gates = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    if cfg.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        _, idx = top_k(scores + p["score_bias"].to(torch.float32),
+                       cfg.top_k)
+        vals = torch.gather(scores, 1, idx)
+        gates = vals / (vals.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale
+        probs = scores / scores.sum(-1, keepdim=True)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        vals, idx = top_k(probs, cfg.top_k)
+        gates = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
     # Switch aux: fraction of tokens per expert × mean router prob per expert
     count = expert_counts(idx[:, 0], cfg.n_experts).to(torch.float32)
     if axes:
@@ -92,6 +145,9 @@ def _router(p, cfg: MoeConfig, x: torch.Tensor, ctx=None, axes=()):
         f_e = count / idx.shape[0]
         p_e = probs.mean(0)
     aux = cfg.n_experts * torch.sum(f_e * p_e)
+    log = getattr(_ROUTES, "log", None)
+    if log is not None:
+        log.idx.append(idx)
     return gates.to(x.dtype), idx, aux
 
 
@@ -120,6 +176,46 @@ def moe_apply_dense(p, cfg: MoeConfig, x: torch.Tensor
                           device=x.device).scatter_add(1, idx, gates)
     y = torch.einsum("ne,end->nd", combine, y_e)
     return y + _shared_out(p, x), aux
+
+
+def _expert_swiglu(p, xs: torch.Tensor, counts: torch.Tensor
+                   ) -> torch.Tensor:
+    """Each expert's SwiGLU over its own rows of ``xs`` [S, d] (sorted by
+    expert; ``counts`` [E] rows each) -> [S, d].  On the card one grouped
+    GEMM each for gate, up and down, the groups' ends from ``counts`` on
+    the card; on the CPU a loop over the experts."""
+    wg, wu, wd = (p[k].to(xs.dtype) for k in ("w_gate", "w_up", "w_down"))
+    if xs.is_cuda:
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        h = torch.nn.functional.silu(torch._grouped_mm(xs, wg, offs=offs)) \
+            * torch._grouped_mm(xs, wu, offs=offs)
+        return torch._grouped_mm(h, wd, offs=offs)
+    outs, start = [], 0
+    for e, c in enumerate(counts.tolist()):
+        if c:
+            outs.append(_swiglu(xs[start:start + c], wg[e], wu[e], wd[e]))
+        start += c
+    return torch.cat(outs) if outs else xs[:0]
+
+
+def moe_apply_grouped(p, cfg: MoeConfig, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [N, d] -> ([N, d], aux): the dropless dispatch on one device.
+    The [N·k] (token, choice) pairs sorted stably by expert, their rows
+    gathered, each expert's SwiGLU over its rows (``_expert_swiglu``),
+    scaled by the gates and added back to their tokens in f32; then the
+    shared experts.  No capacity: every pair is computed, so a token's
+    output does not depend on the other tokens."""
+    n, d = x.shape
+    gates, idx, aux = _router(p, cfg, x)
+    ea = idx.reshape(-1)
+    order = torch.argsort(ea, stable=True)
+    tok = order // cfg.top_k
+    ys = _expert_swiglu(p, x[tok], expert_counts(ea, cfg.n_experts))
+    g = gates.reshape(-1)[order].to(torch.float32)
+    out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
+    out = out.index_add(0, tok, ys.to(torch.float32) * g[:, None])
+    return out.to(x.dtype) + _shared_out(p, x), aux
 
 
 def capacity(cfg: MoeConfig, n_tokens: int) -> int:
@@ -205,4 +301,6 @@ def moe_param_specs(cfg: MoeConfig, rules) -> dict:
         p["shared"] = {"w_gate": P(None, None),
                        "w_up": P(None, None),
                        "w_down": P(None, None)}
+    if cfg.scoring == "sigmoid":
+        p["score_bias"] = P(None)
     return p

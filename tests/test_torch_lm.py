@@ -287,8 +287,16 @@ def test_remat_and_scan_layers_match_jax(remat, scan_layers):
 # configs, data
 # ---------------------------------------------------------------------------
 
+#: fields only the port's config has (for ``moonlight-16b-a3b``), each at
+#: the default that computes what the JAX package computes
+PORT_ONLY = {"moe_scoring": "softmax", "routed_scale": 1.0,
+             "norm_eps": 1e-6}
+
+
 def _fields(cfg) -> dict:
     out = dataclasses.asdict(cfg)
+    if isinstance(cfg, ttr.TransformerConfig):
+        assert {k: out.pop(k) for k in PORT_ONLY} == PORT_ONLY
     for k, v in out.items():
         if isinstance(v, torch.dtype):
             out[k] = str(v).removeprefix("torch.")

@@ -8,7 +8,11 @@
   ``server.copy_out`` (and the DLRM's ``model.*`` under ``server.model``),
   nested in time, one ``request`` a call, with the bytes copied and the
   rows scored; ``step_fn`` records ``train.step`` with a forward and a
-  backward a microbatch, the guard and the update;
+  backward a microbatch, the guard and the update; the LM's prefill
+  (``forward``) and ``decode_step`` record ``lm.prefill`` / ``lm.decode``
+  with the embedding, every layer's attention and FFN (an MoE layer's
+  ``lm.moe`` inside its ``lm.ffn``) and the head, with their rows, tokens,
+  cache length and routed slots;
 * each span lies on the profiler's host timeline under its name, not as
   a user annotation, at the in-memory record's interval (within 0.2 ms);
 * the ring keeps its capacity of the newest records, and a span left by
@@ -24,7 +28,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import kernels as tk
 from repro_torch import tracing
+from repro_torch.configs import get_arch
 from repro_torch.models import recsys as trec
+from repro_torch.models import transformer as ttr
 from repro_torch.serve import server as tserver
 from repro_torch.train import optimizer as topt
 from repro_torch.train import train_loop as ttl
@@ -162,6 +168,60 @@ def test_step_records_its_layers(grad_accum):
     assert len(fwd) == 3 * grad_accum
     assert {r.parent for r in fwd} == \
         {k.id for k in kids if k.name == "train.forward"}
+
+
+def _lm_layers(recs: list, root, cfg) -> None:
+    """``root``'s children: the embedding, each layer's attention then FFN,
+    the head, in that order and inside it; an MoE layer's ``lm.moe``
+    inside its ``lm.ffn``, and nothing else under the root."""
+    kids = _children(recs, root)
+    assert [k.name for k in kids] == \
+        ["lm.embed"] + ["lm.attn", "lm.ffn"] * cfg.n_layers + ["lm.head"]
+    assert all(_inside(k, root) and k.request == root.id for k in kids)
+    ffn = [k for k in kids if k.name == "lm.ffn"]
+    moe = [_children(recs, f) for f in ffn]
+    assert [[m.name for m in ms] for ms in moe] == \
+        [[]] * cfg.first_k_dense + [["lm.moe"]] * (cfg.n_layers
+                                                    - cfg.first_k_dense)
+    mine = [r for r in recs if r.request == root.id]
+    assert len(mine) == 1 + len(kids) + cfg.n_layers - cfg.first_k_dense
+    assert all(not k.counts for k in kids)
+
+
+def test_lm_prefill_and_decode_record_their_layers():
+    cfg = get_arch("moonlight-16b-a3b").make_config("smoke")
+    params = ttr.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, t, steps = 3, 10, 2
+    tokens = torch.randint(0, cfg.vocab, (b, t + steps),
+                           generator=torch.Generator().manual_seed(1))
+    caches = ttr.init_cache(cfg, b, t + steps, device="cpu")
+    with torch.no_grad():
+        before = len(tracing.records())
+        _, _, pre = ttr.forward(params, cfg, tokens[:, :t],
+                                collect_cache=True, logits_mode="last")
+        assert len(tracing.records()) == before
+
+        def serve():
+            out = ttr.forward(params, cfg, tokens[:, :t], collect_cache=True,
+                              logits_mode="last")
+            ttr.fill_cache(cfg, caches, pre, t)
+            for j in range(steps):
+                ttr.decode_step(params, cfg, caches,
+                                tokens[:, t + j:t + j + 1], t + j)
+            return out
+        _, recs, _ = _profiled(serve)
+    roots = [r for r in recs if r.parent is None]
+    assert [r.name for r in roots] == ["lm.prefill"] + ["lm.decode"] * steps
+    assert roots[0].counts == {"samples": b, "tokens": b * t, "cache_len": t}
+    for j, root in enumerate(roots[1:]):
+        assert root.counts == {"samples": b, "tokens": b,
+                               "cache_len": t + j + 1}
+    for root, n_tok in zip(roots, [b * t] + [b] * steps):
+        _lm_layers(recs, root, cfg)
+        slots = [r.counts for r in recs
+                 if r.request == root.id and r.name == "lm.moe"]
+        assert slots == [{"slots": n_tok * cfg.top_k}] * (
+            cfg.n_layers - cfg.first_k_dense)
 
 
 def test_spans_lie_on_the_profiler_timeline():
